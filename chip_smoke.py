@@ -14,17 +14,35 @@ Phases, one result line each; any failure exits non-zero without the final
   build    compile the hand-written kernels (one nvcc per source, together).
   kernels  each kernel in each form (xbar absolute float64 and slack
            float32; netsim ungated and gated absolute float64, gated slack
-           float32) against its plain PyTorch version on the card, bitwise
-           (torch.equal), at the DSE's shapes; ms per call for both.
-  path     run_dse on the card for hft, datacenter, hft_nsga2 and
+           float32; iSLIP at 8 and 32 ports, 1-4 iterations, batches of 1
+           and 4096; the header parser on the hft and datacenter protocols
+           at 9,600 and 1,048,576 headers) against its plain PyTorch version
+           on the card, bitwise (torch.equal), at the DSE's shapes; ms per
+           call for both, and the bound.
+  path     two main paths, each with every kernel's launch counter set to 0
+           just before and read just after:
+           (a) run_scenario on the card for hft, datacenter, hft_nsga2 and
            hft_codesign with the settings their golden reports record
            (tests/golden/*.json), compared with those reports under the
-           golden harness's rules (restated below), with both kernels'
-           launch counters set to 0 before and read after.
+           golden harness's rules (restated below); xbar and netsim must
+           launch;
+           (b) run_scenario for hft and datacenter (its trace cut to
+           200 µs) at the registry's defaults (back-annotation on: the
+           cycle-level switch calibrates the scheduler efficiency) with
+           verify_engine="auto" (the champion escalated to the cycle-level
+           switch), compared with the
+           JAX package's runs recorded in tests/torch_golden/: the report,
+           the escalated cycle result exactly, and the calibrated η; islip
+           and parser must launch.  Stage walls, calibration and rung-4
+           walls.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
            run_netsim; per-stage wall time, kernel ms, peak device memory.
+  profile  (only when named) the cycle-level switch's loop under
+           torch.profiler: kernel launches per simulated cycle, the device's
+           busy share, and device time by kernel, for hft's iSLIP
+           calibration run and 2,000 cycles of its rung-4 champion.
 
 Needs no network and imports nothing of JAX or of the JAX package ``repro``.
 Exits non-zero when no CUDA device is available.
@@ -43,10 +61,20 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("kernels", "path", "scale")
+#: phases that run only when named with --phases
+OPTIONAL_PHASES = ("profile",)
 GOLDEN = ("hft", "datacenter", "hft_nsga2", "hft_codesign")
+#: the cycle-level switch's runs, tests/torch_golden/<name>.{json,npz}:
+#: (registry entry, trace overrides); datacenter's trace is cut from 800 to
+#: 200 µs (149,546 -> 24,203 rung-4 cycles) to keep this script well inside
+#: its time limit
+SWITCH_RUNS = {"hft_auto": ("hft", None),
+               "datacenter_auto": ("datacenter", {"duration_s": 2e-4})}
+SIM_ARRAYS = ("latency_cycles", "latency_ns", "occ_max", "occ_trace")
 
 #: H100 SXM peaks used for bounds: HBM bandwidth and non-tensor FP64/FP32
-#: (NVIDIA's data sheet, at the 700 W power limit)
+#: (NVIDIA's data sheet, at the 700 W power limit); 32-bit integer work is
+#: bounded by the float32 rate, which no integer pipe exceeds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {8: 34e12, 4: 67e12}
 
@@ -241,7 +269,8 @@ def phase_kernels(dev, stats):
                 flops = b * m * (4 if netsim else 3)
                 bound = max(moved / HBM_BYTES_PER_S,
                             flops / PEAK_FLOPS[item]) * 1e3
-                rec = {"shape": shape, "B": b, "m": m, "n_ports": n,
+                rec = {"kernel": "netsim_replay" if netsim else "xbar_scan",
+                       "shape": shape, "B": b, "m": m, "n_ports": n,
                        "form": form, "bitwise_equal": equal,
                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                        "bound_ms": bound,
@@ -252,49 +281,246 @@ def phase_kernels(dev, stats):
                 stats["forms"].append(rec)
                 say("kernels", **rec)
                 ok &= equal
+    ok &= kernels_islip(dev, stats)
+    ok &= kernels_parser(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
 
 
+def _record(stats, rec, got, want):
+    """Compare a kernel's outputs with its plain version's; log the form."""
+    import torch
+    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    rec["bitwise_equal"] = equal
+    rec["max_abs_err"] = max(float((g.double() - w.double()).abs().max())
+                             if g.numel() else 0.0 for g, w in zip(got, want))
+    stats["forms"].append(rec)
+    say("kernels", **rec)
+    return equal
+
+
+def _bound(moved, ops, item):
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / PEAK_FLOPS[item]
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def kernels_islip(dev, stats):
+    """iSLIP at the switch's widths, batches of 1 (the cycle loop) and 4096."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.islip import kernel as ik
+    from repro_torch.kernels.islip.ref import islip_ref
+
+    ok = True
+    rng = np.random.default_rng(0)
+    for n in (8, 32):
+        for iters in (1, 2, 3, 4):
+            for b in (1, 4096):
+                T = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+                req = T(rng.integers(0, 2, (b, n, n)))
+                g, a = T(rng.integers(0, n, (b, n))), T(rng.integers(0, n, (b, n)))
+                kern = lambda: ik.islip_launch(req, g, a, iters=iters)  # noqa: E731
+                plain = lambda: islip_ref(req, g, a, iters=iters)      # noqa: E731
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                # read req and both pointers, write match and both pointers;
+                # each round compares and selects over the N x N matrix twice
+                moved = b * (2 * n * n + 4 * n) * 4
+                ops = b * iters * 4 * n * n
+                bound, by = _bound(moved, ops, 4)
+                rec = {"kernel": "islip_schedule", "form": f"islip_n{n}_it{iters}",
+                       "shape": f"B{b}", "B": b, "n_ports": n, "iters": iters,
+                       "ms": cuda_ms(kern, reps=200 if b == 1 else 20),
+                       "plain_ms": wall_ms(plain), "bound_ms": bound,
+                       "bound_by": by}
+                ok &= _record(stats, rec, got, want)
+    return ok
+
+
+def kernels_parser(dev, stats):
+    """The header parser on the hft and datacenter protocols: the switch's
+    calibration trace (9,600 headers) and a million headers."""
+    import numpy as np
+    import torch
+    from repro_torch.api import build_bound, registry
+    from repro_torch.kernels.parser import bake_slices, parse_headers, parse_ref
+    from repro_torch.kernels.parser import kernel as pk
+    from repro_torch.switch.parser import pack_header_words
+
+    ok = True
+    rng = np.random.default_rng(1)
+    for name in ("hft", "datacenter"):
+        proto = build_bound(registry[name]).protocol
+        fields = [f.name for f in proto.fields]
+        for b in (9600, 1048576):
+            vals = {f.name: rng.integers(0, 2 ** f.bits, b, dtype=np.uint64)
+                    for f in proto.fields}
+            words = torch.from_numpy(pack_header_words(proto, vals)).to(dev)
+            baked = bake_slices(proto, fields)
+            table, first = pk.slice_table(baked, dev)
+            w, f = words.shape[1], len(fields)
+            kern = lambda: pk.parse_words(words, table, first, n_words=w)  # noqa: E731
+            plain = lambda: parse_ref(proto, fields, words)      # noqa: E731
+            n0 = pk.LAUNCHES
+            got, want = parse_headers(proto, fields, words), plain()
+            torch.cuda.synchronize()
+            assert pk.LAUNCHES == n0 + 1, "parse_headers did not launch the kernel"
+            pieces = sum(len(p) for p in baked)
+            bound, by = _bound(b * (w + f) * 4, b * pieces * 4, 4)
+            rec = {"kernel": "parse_headers", "form": f"parser_{name}",
+                   "shape": f"B{b}", "B": b, "words": w, "fields": f,
+                   "ms": cuda_ms(kern, reps=20), "plain_ms": wall_ms(plain),
+                   "bound_ms": bound, "bound_by": by}
+            ok &= _record(stats, rec, (got,), (want,))
+    return ok
+
+
 def _counters():
+    from repro_torch.kernels.islip import kernel as ik
     from repro_torch.kernels.netsim import kernel as nk
+    from repro_torch.kernels.parser import kernel as pk
     from repro_torch.kernels.xbar import kernel as xk
-    return xk, nk
+    return {"xbar_scan": xk, "netsim_replay": nk, "islip_schedule": ik,
+            "parse_headers": pk}
+
+
+def _reset_counters():
+    for mod in _counters().values():
+        mod.LAUNCHES = 0
+
+
+def _read_counters():
+    return {name: mod.LAUNCHES for name, mod in _counters().items()}
 
 
 def phase_path(dev, stats):
-    """run_dse on the card vs the golden reports, with launch counts."""
-    from repro_torch.convert import report_dict, switch_problem_from_dict
-    from repro_torch.core.dse import run_dse
+    """Two main paths on the card, each with fresh launch counters."""
+    failures = path_golden(dev, stats) + path_switch(dev, stats)
+    if failures:
+        raise AssertionError(f"path failures: {failures}")
 
-    xk, nk = _counters()
-    xk.LAUNCHES = 0
-    nk.LAUNCHES = 0
+
+def path_golden(dev, stats):
+    """(a) run_scenario vs the golden reports; xbar and netsim must launch."""
+    from repro_torch.api import Scenario, run_scenario
+
     failures = []
+    _reset_counters()
     for name in GOLDEN:
         with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as f:
             want = json.load(f)
-        x0, n0 = xk.LAUNCHES, nk.LAUNCHES
-        t0 = time.perf_counter()
-        problem, sla, budget, kw = switch_problem_from_dict(
-            want["scenario"], device=dev)
-        result = run_dse(problem, sla, budget, **kw)
-        wall = time.perf_counter() - t0
-        got = json.loads(json.dumps(report_dict(problem, result)))
-        errors = diff_reports(got, {k: want[k] for k in got})
+        before = _read_counters()
+        report = run_scenario(Scenario.from_dict(want["scenario"]), device=dev)
+        got = json.loads(json.dumps(report.to_dict()))
+        errors = diff_reports(got, want)
+        after = _read_counters()
         say("path", scenario=name, best=got["best"], mismatches=len(errors),
-            first_mismatches=errors[:5], wall_s=wall,
-            xbar_launches=xk.LAUNCHES - x0, netsim_launches=nk.LAUNCHES - n0)
+            first_mismatches=errors[:5], wall_s=report.wall_time_s,
+            stage2_s=report.stage2_time_s, stage4_s=report.stage4_time_s,
+            launches={k: after[k] - before[k] for k in after})
         if errors:
             failures.append(name)
-    stats["launches"] = {"xbar_scan": xk.LAUNCHES,
-                         "netsim_replay": nk.LAUNCHES}
-    say("path", launches=stats["launches"])
-    if failures:
-        raise AssertionError(f"golden mismatch: {failures}")
-    if not (xk.LAUNCHES > 0 and nk.LAUNCHES > 0):
-        raise AssertionError(f"a kernel did not run on the main path: "
-                             f"{stats['launches']}")
+    launches = _read_counters()
+    stats["launches"].update({k: launches[k] for k in ("xbar_scan", "netsim_replay")})
+    say("path", path="golden", launches=launches)
+    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0):
+        failures.append(f"xbar/netsim did not run on the golden path: {launches}")
+    return failures
+
+
+def _timed_simulate(log):
+    """Wrap the cycle-level switch to log each run's wall time and cycles
+    (calibration runs pass max_cycles; rung 4 does not)."""
+    import torch
+    import repro_torch.switch.switch as sw
+    real = sw.simulate
+
+    def simulate(arch, bound, trace, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(arch, bound, trace, **kw)
+        torch.cuda.synchronize()
+        log.append({"what": ("calibration" if kw.get("max_cycles") is not None
+                             else "rung4"),
+                    "arch": arch.short(), "cycles": res.n_cycles,
+                    "packets": res.offered, "wall_s": time.perf_counter() - t0})
+        return res
+    sw.simulate = simulate
+    return real
+
+
+def _check_switch_run(name, report, eta_cache):
+    """The report, the escalated cycle result and η against the JAX
+    package's run recorded in tests/torch_golden/<name>.*"""
+    import numpy as np
+    base = os.path.join(ROOT, "tests", "torch_golden", name)
+    with open(base + ".json") as f:
+        want = json.load(f)
+    errors = diff_reports(json.loads(json.dumps(report.to_dict())), want["report"])
+    res = report.best_verify.meta["escalated"].meta["cycle"]
+    scalars = {k: getattr(res, k) for k in want["escalated"]}
+    if json.loads(json.dumps(scalars)) != want["escalated"]:
+        errors.append(f"escalated scalars {scalars} != {want['escalated']}")
+    with np.load(base + ".npz") as z:
+        for k in SIM_ARRAYS:
+            if not np.array_equal(getattr(res, k), z[k]):
+                errors.append(f"escalated {k} differs")
+    eta = [[k[0].value, k[1], k[2].value, k[3], v] for k, v in eta_cache.items()]
+    if eta != want["eta_cache"]:
+        errors.append(f"eta {eta} != {want['eta_cache']}")
+    return errors, res
+
+
+def path_switch(dev, stats):
+    """(b) the registry's defaults (back-annotation) with the champion
+    escalated to the cycle-level switch; islip and parser must launch."""
+    import repro_torch.switch.switch as sw
+    from repro_torch.api import registry, run_scenario
+    from repro_torch.sim import backannotate
+
+    failures = []
+    log = []
+    real = _timed_simulate(log)
+    try:
+        _reset_counters()
+        for name, (scen, trace_params) in SWITCH_RUNS.items():
+            backannotate._ETA_CACHE.clear()        # each run calibrates afresh
+            before, n_log = _read_counters(), len(log)
+            report = run_scenario(registry[scen].override(
+                verify_engine="auto", trace_params=trace_params), device=dev)
+            errors, res = _check_switch_run(name, report, backannotate._ETA_CACHE)
+            after = _read_counters()
+            runs = log[n_log:]
+            calib = [r for r in runs if r["what"] == "calibration"]
+            rung4 = [r for r in runs if r["what"] == "rung4"]
+            rec = {"run": name, "best": report.to_dict()["best"],
+                   "mismatches": len(errors), "first_mismatches": errors[:5],
+                   "wall_s": report.wall_time_s,
+                   "stage2_s": report.stage2_time_s,
+                   "stage4_s": report.stage4_time_s,
+                   "calibration_s": sum(r["wall_s"] for r in calib),
+                   "calibration_cycles": sum(r["cycles"] for r in calib),
+                   "calibration_families": len(calib),
+                   "rung4_s": sum(r["wall_s"] for r in rung4),
+                   "rung4_cycles": res.n_cycles, "rung4_events": res.offered,
+                   "us_per_cycle": 1e6 * sum(r["wall_s"] for r in runs)
+                   / max(sum(r["cycles"] for r in runs), 1),
+                   "simulate_runs": runs,
+                   "launches": {k: after[k] - before[k] for k in after}}
+            stats["switch"].append(rec)
+            say("path", **rec)
+            if errors:
+                failures.append(name)
+        launches = _read_counters()
+    finally:
+        sw.simulate = real
+    stats["launches"].update({k: launches[k]
+                              for k in ("islip_schedule", "parse_headers")})
+    say("path", path="switch", launches=launches)
+    if not (launches["islip_schedule"] > 0 and launches["parse_headers"] > 0):
+        failures.append(f"islip/parser did not run on the switch path: {launches}")
+    return failures
 
 
 def _timed(problem, name, log):
@@ -394,20 +620,21 @@ def phase_scale(dev, stats):
     """Real capture lengths: 372k-event DSE and the 480-row space screen."""
     import numpy as np
     import torch
-    from repro_torch.convert import switch_problem_from_dict
+    from repro_torch.api import Scenario, build_problem
     from repro_torch.core.dse import run_dse
     from repro_torch.core.search import evaluate_space
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.xbar import kernel as xk
 
     with open(os.path.join(ROOT, "tests", "golden", "hft.json")) as f:
-        scen = json.load(f)["scenario"]
+        scen = Scenario.from_dict(json.load(f)["scenario"])
+    kw = {"delta": scen.fidelity.delta, "top_k": scen.fidelity.top_k}
 
     # (a) the exhaustive DSE on a 40 ms capture
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    problem, sla, budget, kw = switch_problem_from_dict(
-        scen, device=dev, trace_params={"duration_s": 0.04})
+    problem, sla, budget = build_problem(
+        scen.override(trace_params={"duration_s": 0.04}), device=dev)
     t_build = time.perf_counter() - t0
     log = {}
     _timed(problem, "surrogate_batch", log)
@@ -452,8 +679,8 @@ def phase_scale(dev, stats):
     # (b) the exhaustive space screen on a 10 ms capture
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    problem, sla, _, kw = switch_problem_from_dict(
-        scen, device=dev, trace_params={"duration_s": 0.01})
+    problem, sla, _ = build_problem(
+        scen.override(trace_params={"duration_s": 0.01}), device=dev)
     t_build = time.perf_counter() - t0
     log = {}
     _timed(problem, "surrogate_batch", log)
@@ -483,6 +710,80 @@ def phase_scale(dev, stats):
     say("scale", **rec)
 
 
+def _profiled(fn):
+    """Run fn under torch.profiler; return (its wall without the profiler,
+    its wall with it, CUDA kernel events as (name, device µs))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    kernels = []
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kernels.append((e.name, float(e.time_range.elapsed_us())))
+    return wall, wall_prof, kernels
+
+
+def phase_profile(dev, stats):
+    """The cycle loop's launches per cycle and the device's busy share."""
+    from repro_torch.api import build_bound, registry
+    from repro_torch.core.archspec import (ForwardTableKind, SchedulerKind,
+                                           SwitchArch, VOQKind)
+    from repro_torch.sim import backannotate
+    from repro_torch.sim.resources import synthesize
+    from repro_torch.switch.switch import simulate
+
+    bound = build_bound(registry["hft"])
+    trace = registry["hft"].trace.build()
+    runs = {
+        # hft's first iSLIP calibration family, 1,456 cycles at saturation
+        "calibration Full/NxN/ISLIP@128b d64": (
+            SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                       SchedulerKind.ISLIP, voq_depth=64, addr_bits=4), None),
+        # the first 2,000 cycles of hft's rung-4 champion
+        "rung4 Full/NxN/RR@128b d288": (
+            SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                       SchedulerKind.RR, voq_depth=288, addr_bits=4), 2000),
+    }
+    for what, (arch, cycles) in runs.items():
+        fclk = synthesize(arch, bound).fmax_mhz * 1e6
+        if cycles is None:
+            def fn():
+                backannotate._ETA_CACHE.clear()
+                backannotate._measured_eta(arch, bound, fclk, device=dev)
+            cycles = 1456
+        else:
+            def fn():
+                simulate(arch, bound, trace, fclk_hz=fclk, max_cycles=cycles,
+                         device=dev)
+        wall, wall_prof, kernels = _profiled(fn)
+        busy_us = sum(us for _, us in kernels)
+        by_name = {}
+        for name, us in kernels:
+            n, t = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, t + us)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        rec = {"run": what, "cycles": cycles, "wall_s": wall,
+               "us_per_cycle": wall * 1e6 / cycles,
+               "wall_profiled_s": wall_prof,
+               "kernels_per_cycle": len(kernels) / cycles,
+               "device_us_per_cycle": busy_us / cycles,
+               "device_busy_share": busy_us * 1e-6 / wall,
+               "top_kernels_us": {name[:60]: [n, round(t, 1)] for name, (n, t) in top}}
+        stats.setdefault("profile", []).append(rec)
+        say("profile", **rec)
+        if not kernels:
+            raise AssertionError("torch.profiler recorded no CUDA kernel")
+
+
 # --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
@@ -490,25 +791,34 @@ def phase_scale(dev, stats):
 KERNELS = {
     "xbar_scan": {"source": "src/repro_torch/csrc/xbar.cu",
                   "replaces": "src/repro/kernels/xbar/kernel.py:54",
-                  "form": "xbar_abs_f64"},
+                  "main": ("xbar_abs_f64", "hft")},
     "netsim_replay": {"source": "src/repro_torch/csrc/netsim.cu",
                       "replaces": "src/repro/kernels/netsim/kernel.py:62",
-                      "form": "netsim_ungated_abs_f64"},
+                      "main": ("netsim_ungated_abs_f64", "hft")},
+    # the cycle loop's call: one 8-port switch, the hft calibration's 2 rounds
+    "islip_schedule": {"source": "src/repro_torch/csrc/islip.cu",
+                       "replaces": "src/repro/kernels/islip/kernel.py:73",
+                       "main": ("islip_n8_it2", "B1")},
+    # hft's calibration trace: 9,600 headers parsed once before the loop
+    "parse_headers": {"source": "src/repro_torch/csrc/parser.cu",
+                      "replaces": "src/repro/kernels/parser/kernel.py:45",
+                      "main": ("parser_hft", "B9600")},
 }
 
 
 def kernels_line(stats):
-    """One entry per kernel: the main-path form at the hft shape, the
-    largest disagreement over every form and shape, and the path's launches."""
+    """One entry per kernel: its main-path form and shape, the largest
+    disagreement over every form and shape, and its path's launches."""
     out = []
     for name, meta in KERNELS.items():
-        forms = [r for r in stats["forms"] if r["form"].startswith(name.split("_")[0])]
-        main = next((r for r in forms if r["form"] == meta["form"]
-                     and r["shape"] == "hft"), {})
+        forms = [r for r in stats["forms"] if r["kernel"] == name]
+        form, shape = meta["main"]
+        main = next((r for r in forms if r["form"] == form
+                     and r["shape"] == shape), {})
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": stats.get("launches", {}).get(name, 0),
+            "launches": stats["launches"].get(name, 0),
             "max_abs_err": max((r["max_abs_err"] for r in forms), default=None),
             "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
             "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
@@ -520,10 +830,10 @@ def kernels_line(stats):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + OPTIONAL_PHASES}")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -561,10 +871,10 @@ def main(argv=None) -> int:
     say("build", seconds=time.perf_counter() - t0, build_dir=str(BUILD_DIR),
         ptxas=regs)
 
-    stats = {"forms": [], "scale": []}
+    stats = {"forms": [], "scale": [], "switch": [], "launches": {}}
     failed = []
     for name, fn in (("kernels", phase_kernels), ("path", phase_path),
-                     ("scale", phase_scale)):
+                     ("scale", phase_scale), ("profile", phase_profile)):
         if name not in phases:
             continue
         t0 = time.perf_counter()

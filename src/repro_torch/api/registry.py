@@ -1,0 +1,159 @@
+"""The scenario registry: the paper's five workload families plus the
+TPU comm-layer scenarios, ready for ``spac run <name>``.
+
+Each switch entry reproduces the Table II recipe: a compressed per-workload
+protocol (``addr_bits`` sized to the port count, 12-bit length), every
+architecture policy on AUTO, and the workload's published SLA.  The comm
+entries retarget the same Algorithm 1 at the MoE dispatch fabric and the
+gradient-bucket exchange (``CommDSEProblem``).
+
+``registry`` is the module-level pre-populated instance; user code can
+``registry.register(...)`` its own scenarios (examples do).
+
+The port's copy of the JAX package's ``api/registry.py``, with every entry.
+The port runs the switch entries without a topology; ``fattree_dc`` (a
+fabric) and the comm entries are listed and shown but raise
+``NotImplementedError`` when run (ROADMAP queue 1, items 7 and 10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, List, Optional
+
+from repro_torch.core.archspec import ArchRequest, ForwardTableKind, VOQKind
+from repro_torch.core.dse import ResourceBudget, SLA
+
+from .scenario import (CommModelSpec, Fidelity, ProtocolSpec, Scenario,
+                       TopologySpec, TraceSpec)
+
+__all__ = ["ScenarioRegistry", "registry"]
+
+
+class ScenarioRegistry:
+    """Name → ``Scenario`` mapping with dict-like access."""
+
+    def __init__(self):
+        self._scenarios: Dict[str, Scenario] = {}
+
+    def register(self, scenario: Scenario, *, replace: bool = False) -> Scenario:
+        if scenario.name in self._scenarios and not replace:
+            raise ValueError(f"scenario {scenario.name!r} already registered "
+                             "(pass replace=True to overwrite)")
+        self._scenarios[scenario.name] = scenario
+        return scenario
+
+    def get(self, name: str) -> Optional[Scenario]:
+        return self._scenarios.get(name)
+
+    def __getitem__(self, name: str) -> Scenario:
+        try:
+            return self._scenarios[name]
+        except KeyError:
+            raise KeyError(f"unknown scenario {name!r}; known: {self.names()}") from None
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._scenarios
+
+    def __iter__(self) -> Iterator[Scenario]:
+        return iter(self._scenarios.values())
+
+    def __len__(self) -> int:
+        return len(self._scenarios)
+
+    def names(self) -> List[str]:
+        return sorted(self._scenarios)
+
+    def items(self):
+        return self._scenarios.items()
+
+
+registry = ScenarioRegistry()
+
+
+def _switch_scenario(name: str, *, n_ports: int, sla: SLA,
+                     length_bits: int = 12, seed: int = 0,
+                     notes: str = "") -> Scenario:
+    addr_bits = max(4, (n_ports - 1).bit_length())
+    return Scenario(
+        name=name,
+        domain="switch",
+        protocol=ProtocolSpec(
+            builder="compressed_protocol",
+            params={"addr_bits": addr_bits, "length_bits": length_bits,
+                    "name": f"spac_{name}"}),
+        flit_bits=256,
+        trace=TraceSpec(generator=name, params={"seed": seed}),
+        arch=ArchRequest(n_ports=n_ports, addr_bits=addr_bits),
+        sla=sla,
+        notes=notes,
+    )
+
+
+# ----------------------------------------------------------- paper workloads
+registry.register(_switch_scenario(
+    "hft", n_ports=8, sla=SLA(p99_latency_ns=5e3, drop_rate=1e-3),
+    notes="market-data bursts, 24 B payloads (Table II HFT row)"))
+registry.register(_switch_scenario(
+    "rl_allreduce", n_ports=8, sla=SLA(p99_latency_ns=1e6, drop_rate=1e-2),
+    notes="iSwitch-style synchronous gradient rounds: incast then broadcast"))
+registry.register(_switch_scenario(
+    "datacenter", n_ports=32, sla=SLA(p99_latency_ns=1e6, drop_rate=1e-2),
+    notes="Alibaba-trace-style microservice RPC, Zipf hotspots over 32 nodes"))
+registry.register(_switch_scenario(
+    "industry", n_ports=10, sla=SLA(p99_latency_ns=1e5, drop_rate=1e-3),
+    notes="SCADA master/outstation polling, ~58.7 B responses"))
+registry.register(_switch_scenario(
+    "underwater", n_ports=8, sla=SLA(p99_latency_ns=1e5, drop_rate=1e-3),
+    notes="8 DESERT robots, periodic 2 B beacons"))
+registry.register(_switch_scenario(
+    "uniform", n_ports=8, sla=SLA(p99_latency_ns=1e6, drop_rate=1e-2),
+    notes="uniform Bernoulli baseline (Fig. 1 / Fig. 8 sensitivity)"))
+
+# ------------------------------------------------------------ fabric (multi-hop)
+registry.register(Scenario(
+    name="fattree_dc",
+    domain="switch",
+    protocol=ProtocolSpec(
+        builder="compressed_protocol",
+        # the routing field must address all 8 fabric *hosts* (SPAC106),
+        # not one 4-port switch
+        params={"addr_bits": 4, "length_bits": 12, "name": "spac_fattree_dc"}),
+    flit_bits=256,
+    trace=TraceSpec(generator="datacenter", params={"seed": 0, "n_ports": 8}),
+    # per-tier policy template: n_ports == the fat-tree degree (k=4); fwd/voq
+    # pinned so the exhaustive per-tier cross product stays smoke-sized
+    # (12 x 12 = 144 fabric candidates); VOQKind.SHARED is fabric-infeasible
+    arch=ArchRequest(n_ports=4, addr_bits=4, fwd=ForwardTableKind.MULTIBANK_HASH,
+                     voq=VOQKind.NXN),
+    topology=TopologySpec.make("fattree", k=4),
+    sla=SLA(p99_latency_ns=1e5, drop_rate=1e-2),
+    # the datacenter trace's minimum packet (a handful of bytes at 25 Gbps)
+    # makes the strict line-rate prune reject every 4-port design; at the
+    # trace's 0.2 load that bound is far too pessimistic — relax stage-1
+    # slack and let the surrogate + netsim stages judge for real
+    fidelity=Fidelity(delta=2.5),
+    notes="2-tier k=4 fat-tree fabric: 8 hosts through 4 edge + 2 core "
+          "switches, per-tier designs evaluated end-to-end hop-by-hop"))
+
+# --------------------------------------------------------- comm-layer (TPU)
+registry.register(Scenario(
+    name="moe_dispatch",
+    domain="comm",
+    comm=CommModelSpec(d_model=512, d_ff=1024, moe_experts=32, moe_topk=4,
+                       batch=8, seq=256, model_tp=16),
+    sla=SLA(p99_latency_ns=math.inf, drop_rate=2e-2),
+    budget=ResourceBudget({"bytes_per_device": 4e9}),
+    fidelity=Fidelity(back_annotation=False),
+    notes="MoE token dispatch as a SPAC switch: capacity factor = VOQ depth, "
+          "payload protocol bf16/int8, a2a schedule (CommDSEProblem)"))
+registry.register(Scenario(
+    name="grad_bucket",
+    domain="comm",
+    comm=CommModelSpec(d_model=1024, d_ff=2048, moe_experts=16, moe_topk=1,
+                       batch=4, seq=256, model_tp=8),
+    sla=SLA(p99_latency_ns=math.inf, drop_rate=1e-2),
+    budget=ResourceBudget({"bytes_per_device": 4e9}),
+    fidelity=Fidelity(back_annotation=False),
+    notes="gradient-bucket exchange: each bucket routes to one reduction peer "
+          "(top-1), sizing the per-peer staging buffers"))

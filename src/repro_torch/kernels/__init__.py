@@ -2,6 +2,8 @@
 
   xbar/    - greedy-crossbar contention scan (stage 2)
   netsim/  - admission-gated port replay and the fixed point (stage 4)
+  islip/   - batched iSLIP matching (the cycle-level switch's scheduler)
+  parser/  - protocol header field extraction (the switch's ingress)
 
 Each family keeps the JAX package's triple: ``kernel.py`` binds the CUDA
 kernel (sources in ``repro_torch/csrc/``, built by ``build.py`` at first

@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 #: build directory at the checkout root (``src/repro_torch`` -> ``.``)
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("xbar", "netsim")
+SOURCES = ("xbar", "netsim", "islip", "parser")
 #: dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

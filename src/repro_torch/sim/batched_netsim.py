@@ -270,7 +270,7 @@ def run_netsim_batched(
         return []
     if hw is None:
         source = "cycle_sim" if back_annotation else "model"
-        hw = [annotate(a, b, source=source, i_burst=i_burst)
+        hw = [annotate(a, b, source=source, i_burst=i_burst, device=device)
               for a, b in zip(archs, bounds)]
     hw = list(hw)
     if len(hw) != len(archs):

@@ -306,7 +306,7 @@ def run_surrogate_batched(
             line_rate_feasible=np.zeros(0, bool))
     if hw is None:
         source = "cycle_sim" if back_annotation else "model"
-        hw = [annotate(a, b, source=source, i_burst=i_burst)
+        hw = [annotate(a, b, source=source, i_burst=i_burst, device=device)
               for a, b in zip(archs, bounds)]
     hw = list(hw)
     if len(hw) != len(archs):

@@ -92,12 +92,14 @@ def run_netsim(
     cfg: Optional[NetSimConfig] = None,
     back_annotation: bool = True,
     i_burst: float = 1.0,
+    device=None,
 ) -> VerifyResult:
     if cfg is None:
         cfg = NetSimConfig()     # per call: NetSimConfig is mutable
     if hw is None:
+        # device: where back-annotation runs the cycle-level switch
         hw = annotate(arch, bound, source="cycle_sim" if back_annotation else "model",
-                      i_burst=i_burst)
+                      i_burst=i_burst, device=device)
     n = arch.n_ports
     link_bps = trace.link_gbps * 1e9
     can_retx = cfg.retransmit and bound.has("seq_no")

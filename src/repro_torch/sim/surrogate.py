@@ -33,10 +33,12 @@ def run_surrogate(
     hw: HardwareParams = None,
     back_annotation: bool = False,
     i_burst: float = 1.0,
+    device=None,
 ) -> SurrogateResult:
     if hw is None:
+        # device: where back-annotation runs the cycle-level switch
         hw = annotate(arch, bound, source="cycle_sim" if back_annotation else "model",
-                      i_burst=i_burst)
+                      i_burst=i_burst, device=device)
     n = arch.n_ports
     fclk = hw.fclk_hz
 

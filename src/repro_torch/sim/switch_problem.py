@@ -2,9 +2,11 @@
 
 Plugs the resource model, statistical surrogate and network simulator into the
 generic Progressive-Constraint-Satisfaction engine (``repro_torch.core.dse``).
-The batched stages run on ``device`` (default: the first CUDA device, which
-must exist): stage 2's contention scan and stage 4's port replay are the
-hand-written CUDA kernels there, their plain PyTorch versions on the CPU.
+The batched stages, back-annotation and the cycle-level switch run on
+``device`` (default: the first CUDA device, which must exist): stage 2's
+contention scan, stage 4's port replay and the switch's parser and iSLIP
+step are hand-written CUDA kernels there, their plain PyTorch versions on
+the CPU.
 """
 
 from __future__ import annotations
@@ -140,12 +142,6 @@ class SwitchDSEProblem(DSEProblem):
         if verify_engine not in VERIFY_ENGINES:
             raise ValueError(f"unknown verify_engine {verify_engine!r}; "
                              f"known: {VERIFY_ENGINES}")
-        if verify_engine != "netsim":
-            raise NotImplementedError(
-                f"verify_engine={verify_engine!r} needs the engine ladder "
-                "(sim/engines.py) and the cycle-level switch, which are not "
-                "ported to repro_torch yet (ROADMAP queue 1, items 5-6); "
-                "use verify_engine='netsim'")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported to repro_torch yet (ROADMAP "
@@ -352,7 +348,7 @@ class SwitchDSEProblem(DSEProblem):
     def surrogate(self, c) -> SurrogateResult:
         return run_surrogate(self._arch(c), self._bound_for(c), self.trace,
                              back_annotation=self.back_annotation,
-                             i_burst=self.features.i_burst)
+                             i_burst=self.features.i_burst, device=self.device)
 
     def surrogate_batch(self, cands) -> List[SurrogateResult]:
         """Fan stage 2 out through the batched engine: one
@@ -382,9 +378,15 @@ class SwitchDSEProblem(DSEProblem):
 
     # ------------------------------------------------------------- stage 4
     def verify(self, c) -> VerifyResult:
+        if self.verify_engine == "cycle":
+            from .engines import get_engine
+            return get_engine("cycle").evaluate(
+                self._arch(c), self._bound_for(c), self.trace,
+                back_annotation=self.back_annotation,
+                i_burst=self.features.i_burst, device=self.device)
         return run_netsim(self._arch(c), self._bound_for(c), self.trace,
                           back_annotation=self.back_annotation,
-                          i_burst=self.features.i_burst)
+                          i_burst=self.features.i_burst, device=self.device)
 
     def verify_batch(self, cands) -> List[VerifyResult]:
         """Fan stage 4 out through the batched finite-buffer verifier: one
@@ -396,6 +398,8 @@ class SwitchDSEProblem(DSEProblem):
         cands = list(cands)
         if not cands:
             return []
+        if self.verify_engine == "cycle":
+            return [self.verify(c) for c in cands]     # rung 4 has no batch form
         return run_netsim_batched(
             [self._arch(c) for c in cands], self._batch_bound(cands),
             self.trace,
@@ -404,10 +408,17 @@ class SwitchDSEProblem(DSEProblem):
             use_kernel=self.use_kernel, device=self.device)
 
     def escalate(self, c, v: VerifyResult) -> Optional[VerifyResult]:
-        """``verify_engine="auto"`` climbs the champion to the cycle-level
-        switch; that rung is not ported yet (the constructor refuses
-        "auto"), so there is never an escalation here."""
-        return None
+        """``verify_engine="auto"``: the front was verified by batched netsim;
+        climb the champion one rung to the cycle-accurate datapath.  The
+        result lands in ``meta["escalated"]`` (ranking stays netsim-based, so
+        "auto" and "netsim" produce the identical Pareto front)."""
+        if self.verify_engine != "auto":
+            return None
+        from .engines import get_engine
+        return get_engine("cycle").evaluate(
+            self._arch(c), self._bound_for(c), self.trace, hw=v.meta.get("hw"),
+            back_annotation=self.back_annotation,
+            i_burst=self.features.i_burst, device=self.device)
 
     def objectives(self, c, v: VerifyResult) -> Tuple[float, float]:
         # Table II reports *average* latency; p99 is already an SLA constraint
@@ -435,9 +446,11 @@ def optimize_switch(
 ):
     """One-call wrapper: trace in, Pareto-optimal switch out (Table II flow).
 
-    The JAX package's ``run_scenario`` runs exactly this path underneath
-    (its ``api`` layer is not ported yet).  ``device`` defaults to the first
-    CUDA device.
+    Compatibility wrapper for the pre-Scenario API.  New code should build a
+    ``repro_torch.api.Scenario`` and call ``repro_torch.api.run_scenario`` —
+    a scenario is the same (request, protocol, trace, SLA, budget) bundle as
+    a serializable config, and ``run_scenario`` runs exactly this path
+    underneath.  ``device`` defaults to the first CUDA device.
     """
     problem = SwitchDSEProblem(request, bound, trace,
                                back_annotation=back_annotation,

@@ -7,7 +7,9 @@ Contract: ``repro_torch`` copies ``core``, ``traces``, ``sim/resources``,
 candidate lists, bound layouts, trace arrays from every generator, resource
 reports, trace features and the serial stage-2/stage-4 oracles are equal,
 floats bitwise.  The port imports neither ``jax`` nor ``repro``, runs on
-the card unless told otherwise, and refuses what it has not ported yet.
+the card unless told otherwise, and refuses what it has not ported yet
+(the ring-scan engine, mesh sharding, fabrics, the comm domain and search
+checkpoints).
 """
 
 import jax
@@ -217,19 +219,25 @@ def test_unported_paths_raise_not_implemented():
         bind(compressed_protocol(addr_bits=4, length_bits=12), flit_bits=256))
     tr = convert.from_reference(hft(seed=0).head(64))
     req = convert.from_reference(REQUESTS[0])
-    for engine in ("cycle", "auto"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            psim.SwitchDSEProblem(req, bound, tr, verify_engine=engine,
-                                  device="cpu")
+    for engine in ("cycle", "auto"):        # rung 4 is ported: no refusal
+        assert psim.SwitchDSEProblem(req, bound, tr, verify_engine=engine,
+                                     device="cpu").verify_engine == engine
     with pytest.raises(NotImplementedError, match="mesh"):
         psim.SwitchDSEProblem(req, bound, tr, mesh=2, device="cpu")
     prob = psim.SwitchDSEProblem(req, bound, tr, back_annotation=False,
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         pcore.run_dse(prob, pcore.SLA(), pcore.ResourceBudget({}), mesh=2)
-    with pytest.raises(NotImplementedError, match="cycle-level switch"):
-        psim.annotate(pcore.enumerate_candidates(req)[0], bound,
-                      source="cycle_sim")
+    with pytest.raises(NotImplementedError, match="ring-scan"):
+        psim.run_netsim_batched(pcore.enumerate_candidates(req)[:1], bound, tr,
+                                back_annotation=False, use_kernel="off",
+                                device="cpu")
+    from repro_torch.api import registry as port_registry, run_scenario
+    for name, item in (("fattree_dc", "item 7"), ("moe_dispatch", "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            run_scenario(port_registry[name], device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        run_scenario(port_registry["hft"].override(devices=2), device="cpu")
     for fn, args in ((psearch.save_search_state, ("d", None)),
                      (psearch.load_search_state, ("d", None, None)),
                      (psearch.remesh_search_state, ({}, {}))):

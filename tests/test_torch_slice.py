@@ -1,12 +1,13 @@
 """The port's main path end to end against the JAX package.
 
-Contract: ``repro_torch.core.dse.run_dse`` on a port ``SwitchDSEProblem``,
+Contract: the port's ``repro_torch.api.run_scenario`` on the golden
+scenarios (the reference's scenario dicts loaded by the port's ``Scenario``),
 run on the CPU with the kernels' plain versions, gives the reference's
 ``run_dse`` result bitwise (Pareto shorts, float64 latencies, drop rates,
 resources and stage logs) for hft, datacenter, hft_nsga2 and hft_codesign,
-and reproduces their golden reports under the golden harness's
-``diff_reports``.  ``optimize_switch`` matches the reference's one-call
-wrapper, and a CPU run launches no CUDA kernel.
+and its ``ScenarioReport`` reproduces their golden reports under the golden
+harness's ``diff_reports``.  ``optimize_switch`` matches the reference's
+one-call wrapper, and a CPU run launches no CUDA kernel.
 """
 
 import jax
@@ -28,7 +29,8 @@ from repro.core import dse as ref_dse  # noqa: E402
 from repro.sim import switch_problem as ref_sp  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import dse as port_dse  # noqa: E402
+from repro_torch.api import Scenario as PortScenario  # noqa: E402
+from repro_torch.api import run_scenario as port_run_scenario  # noqa: E402
 from repro_torch.kernels.netsim import kernel as netsim_kernel  # noqa: E402
 from repro_torch.kernels.xbar import kernel as xbar_kernel  # noqa: E402
 from repro_torch.sim import switch_problem as port_sp  # noqa: E402
@@ -78,16 +80,15 @@ def test_run_dse_bitwise_vs_reference_and_golden(name):
                            top_k=fid.top_k, search=scenario.search)
 
     xbar_kernel.LAUNCHES = netsim_kernel.LAUNCHES = 0
-    pproblem, psla, pbudget, kw = convert.switch_problem_from_dict(
-        scenario.to_dict(), device="cpu")
-    got = port_dse.run_dse(pproblem, psla, pbudget, **kw)
+    report = port_run_scenario(PortScenario.from_dict(scenario.to_dict()),
+                               device="cpu")
     assert xbar_kernel.LAUNCHES == 0 and netsim_kernel.LAUNCHES == 0
-    _assert_results_bitwise(got, want)
+    assert report.problem.device.type == "cpu"
+    _assert_results_bitwise(report.result, want)
 
     with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as f:
         golden = json.load(f)
-    report = json.loads(json.dumps(convert.report_dict(pproblem, got)))
-    errors = diff_reports(report, {k: golden[k] for k in report})
+    errors = diff_reports(json.loads(json.dumps(report.to_dict())), golden)
     assert not errors, "\n".join(errors)
 
 
