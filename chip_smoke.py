@@ -16,9 +16,13 @@ Phases, one result line each; any failure exits non-zero without the final
            float32; netsim ungated and gated absolute float64, gated slack
            float32; iSLIP at 8 and 32 ports, 1-4 iterations, batches of 1
            and 4096; the header parser on the hft and datacenter protocols
-           at 9,600 and 1,048,576 headers) against its plain PyTorch version
-           on the card, bitwise (torch.equal), at the DSE's shapes; ms per
-           call for both, and the bound.
+           at 9,600 and 1,048,576 headers; int8 quantize from float32 and
+           bfloat16 and dequantize to both, at the dispatch buffers of
+           comm_small and moe_dispatch and of one full-width
+           qwen3-moe-235b-a22b layer, [131072, 4096], with all-zero groups
+           and exact .5 ties) against its plain PyTorch version on the card,
+           bitwise (torch.equal), at the paths' shapes; ms per call for
+           both, and the bound.
   path     two main paths, each with every kernel's launch counter set to 0
            just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2 and
@@ -34,11 +38,25 @@ Phases, one result line each; any failure exits non-zero without the final
            JAX package's runs recorded in tests/torch_golden/: the report,
            the escalated cycle result exactly, and the calibrated η; islip
            and parser must launch.  Stage walls, calibration and rung-4
-           walls.
+           walls;
+           (c) the comm domain: run_scenario on comm_small (against
+           tests/golden/comm_small.json), moe_dispatch and grad_bucket
+           (registry settings) with the JAX package's router, LSH projection
+           and routing sample carried across from tests/torch_golden/,
+           against the reference's runs stored there (report, each verified
+           candidate's expert loads and drop rate); comm_small's layer
+           output against the reference's within a stated tolerance and
+           identical from run to run; quantize and dequantize must launch.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
-           run_netsim; per-stage wall time, kernel ms, peak device memory.
+           run_netsim; per-stage wall time, kernel ms, peak device memory;
+           and autotune_moe on one full-width qwen3-moe-235b-a22b MoE layer
+           (d_model 4096, expert d_ff 1536, 128 experts, top-8; 8 x 1,024
+           tokens; the port's seeded init, model_tp 16): stage walls, kernel
+           ms and launches, peak memory, the int8 payload's relative error
+           against bf16, and the invariants (loads sum to tokens x k, the
+           champion's drop rate within the SLA).
   profile  (only when named) the cycle-level switch's loop under
            torch.profiler: kernel launches per simulated cycle, the device's
            busy share, and device time by kernel, for hft's iSLIP
@@ -51,6 +69,7 @@ Exits non-zero when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -71,6 +90,15 @@ GOLDEN = ("hft", "datacenter", "hft_nsga2", "hft_codesign")
 SWITCH_RUNS = {"hft_auto": ("hft", None),
                "datacenter_auto": ("datacenter", {"duration_s": 2e-4})}
 SIM_ARRAYS = ("latency_cycles", "latency_ns", "occ_max", "occ_trace")
+#: the comm runs, tests/torch_golden/<name>.{json,npz} (the JAX package's
+#: runs at these settings, with their inputs)
+COMM_RUNS = ("comm_small", "moe_dispatch", "grad_bucket")
+#: comm_small's layer output against the reference's, relative to max |y|
+#: (the expert FFN's bfloat16 products round differently in cuBLAS and XLA)
+Y_RTOL = 2e-2
+#: the full-width MoE layer of the scale phase
+SCALE_ARCH = "qwen3-moe-235b-a22b"
+SCALE_TOKENS = (8, 1024)
 
 #: H100 SXM peaks used for bounds: HBM bandwidth and non-tensor FP64/FP32
 #: (NVIDIA's data sheet, at the 700 W power limit); 32-bit integer work is
@@ -283,6 +311,7 @@ def phase_kernels(dev, stats):
                 ok &= equal
     ok &= kernels_islip(dev, stats)
     ok &= kernels_parser(dev, stats)
+    ok &= kernels_quant(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -376,27 +405,114 @@ def kernels_parser(dev, stats):
     return ok
 
 
+def dispatch_rows(tokens: int, k: int, experts: int, cf: float,
+                  chunks: int = 1) -> int:
+    """Rows of one chunk of the fabric's dispatch buffer [E * c_sub, d]."""
+    cap = max(int(math.ceil(tokens * k / experts * cf)), 1)
+    n = max(1, min(chunks, cap))
+    return experts * -(-cap // n)
+
+
+#: the buffers the int8 payload quantizes: (rows, d_model) per chunk
+QUANT_SHAPES = {
+    # comm_small's champion cf=2.00/int8/a2a×1: 128 tokens, top-2 of 8
+    "comm_small": (dispatch_rows(128, 2, 8, 2.0), 128),
+    # moe_dispatch's champion cf=1.50/int8/a2a×2: 2,048 tokens, top-4 of 32
+    "moe_dispatch": (dispatch_rows(2048, 4, 32, 1.5, 2), 512),
+    # one full-width qwen3-moe-235b-a22b layer at cf 2.0: 8,192 tokens,
+    # top-8 of 128, cap 1,024
+    "qwen3_full": (dispatch_rows(8192, 8, 128, 2.0), 4096),
+}
+
+
+def quant_inputs(r: int, c: int, dev, seed: int):
+    """[r, c] float32 with row scales from 0.01 to 100, all-zero groups and
+    a group of exact .5 ties (absmax 127 -> scale 1.0)."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((r, c), generator=g, device=dev)
+    lo, hi = math.log(0.01), math.log(100.0)
+    x *= torch.exp(torch.rand((r, 1), generator=g, device=dev) * (hi - lo) + lo)
+    x[::7, :128] = 0.0
+    ties = torch.randint(-126, 126, (128,), generator=g, device=dev) + 0.5
+    ties[0] = 127.0
+    x[1 % r, :128] = ties
+    return x
+
+
+def kernels_quant(dev, stats):
+    """int8 quantize (float32 and bfloat16 in) and dequantize (float32 and
+    bfloat16 out) at the comm paths' dispatch buffers."""
+    import torch
+    from repro_torch.kernels.quant_pack import kernel as qk
+    from repro_torch.kernels.quant_pack.ref import dequantize_ref, quantize_ref
+
+    ok = True
+    for i, (shape, (r, c)) in enumerate(QUANT_SHAPES.items()):
+        x32 = quant_inputs(r, c, dev, seed=i)
+        for name, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
+            kern = lambda: qk.quantize(x)                       # noqa: E731
+            plain = lambda: quantize_ref(x)                     # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            # read x once, write the codes and one scale per group; per
+            # element |x|, a max, a division, a rounding and two clamps
+            moved = r * c * (x.element_size() + 1) + r * c // 128 * 4
+            bound, by = _bound(moved, 6 * r * c, 4)
+            rec = {"kernel": "quantize", "form": f"quantize_{name}",
+                   "shape": shape, "R": r, "C": c,
+                   "ms": cuda_ms(kern, reps=20), "plain_ms": wall_ms(plain),
+                   "bound_ms": bound, "bound_by": by}
+            ok &= _record(stats, rec, got, want)
+            del got, want
+        q, s = qk.quantize(x32.to(torch.bfloat16))
+        del x32
+        for name, out in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            kern = lambda: qk.dequantize(q, s, out)             # noqa: E731
+            plain = lambda: dequantize_ref(q, s, out)           # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            item = torch.empty((), dtype=out).element_size()
+            moved = r * c * (1 + item) + r * c // 128 * 4
+            bound, by = _bound(moved, 2 * r * c, 4)
+            rec = {"kernel": "dequantize", "form": f"dequantize_{name}",
+                   "shape": shape, "R": r, "C": c,
+                   "ms": cuda_ms(kern, reps=20), "plain_ms": wall_ms(plain),
+                   "bound_ms": bound, "bound_by": by}
+            ok &= _record(stats, rec, (got,), (want,))
+            del got, want
+        del q, s
+        torch.cuda.empty_cache()
+    return ok
+
+
 def _counters():
+    """kernel name -> (the module of its wrapper, the counter's name)"""
     from repro_torch.kernels.islip import kernel as ik
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.parser import kernel as pk
+    from repro_torch.kernels.quant_pack import kernel as qk
     from repro_torch.kernels.xbar import kernel as xk
-    return {"xbar_scan": xk, "netsim_replay": nk, "islip_schedule": ik,
-            "parse_headers": pk}
+    return {"xbar_scan": (xk, "LAUNCHES"), "netsim_replay": (nk, "LAUNCHES"),
+            "islip_schedule": (ik, "LAUNCHES"),
+            "parse_headers": (pk, "LAUNCHES"),
+            "quantize": (qk, "QUANTIZE_LAUNCHES"),
+            "dequantize": (qk, "DEQUANTIZE_LAUNCHES")}
 
 
 def _reset_counters():
-    for mod in _counters().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def _read_counters():
-    return {name: mod.LAUNCHES for name, mod in _counters().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def phase_path(dev, stats):
     """Two main paths on the card, each with fresh launch counters."""
-    failures = path_golden(dev, stats) + path_switch(dev, stats)
+    failures = (path_golden(dev, stats) + path_switch(dev, stats)
+                + path_comm(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -520,6 +636,87 @@ def path_switch(dev, stats):
     say("path", path="switch", launches=launches)
     if not (launches["islip_schedule"] > 0 and launches["parse_headers"] > 0):
         failures.append(f"islip/parser did not run on the switch path: {launches}")
+    return failures
+
+
+def _comm_fixture(name):
+    import numpy as np
+    base = os.path.join(ROOT, "tests", "torch_golden", name)
+    with open(base + ".json") as f:
+        doc = json.load(f)
+    with np.load(base + ".npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return doc, arrays
+
+
+def _bf16_bits_to_f32(a):
+    import numpy as np
+    return (np.asarray(a).astype(np.uint32) << 16).view(np.float32)
+
+
+def path_comm(dev, stats):
+    """(c) the comm domain with the reference's inputs carried across;
+    quantize and dequantize must launch."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.api import Scenario
+    from repro_torch.models import MoEOptions
+    from repro_torch.models.moe import apply_moe
+
+    failures = []
+    _reset_counters()
+    for name in COMM_RUNS:
+        doc, arrays = _comm_fixture(name)
+        before = _read_counters()
+        report = convert.run_comm_scenario(
+            Scenario.from_dict(doc["report"]["scenario"]), arrays, device=dev)
+        got = json.loads(json.dumps(report.to_dict()))
+        errors = diff_reports(got, doc["report"])
+        verified = [{"candidate": a.short(), "drop_frac": float(v.drop_rate),
+                     "expert_load": np.asarray(v.meta["expert_load"]).tolist()}
+                    for a, v, _, _ in report.result.evaluated]
+        if verified != doc["verified"]:
+            errors.append("verified candidates' expert loads / drop rates differ")
+        if name == "comm_small":
+            with open(os.path.join(ROOT, "tests", "golden", "comm_small.json")) as f:
+                errors += [f"golden: {e}" for e in diff_reports(got, json.load(f))]
+        after = _read_counters()
+        rec = {"comm": name, "best": got["best"], "mismatches": len(errors),
+               "first_mismatches": errors[:5], "wall_s": report.wall_time_s,
+               "stage2_s": report.stage2_time_s,
+               "stage4_s": report.stage4_time_s,
+               "verified": len(verified),
+               "launches": {k: after[k] - before[k] for k in after}}
+        stats["comm"].append(rec)
+        say("path", **rec)
+        if errors:
+            failures.append(name)
+    launches = _read_counters()
+    stats["launches"].update({k: launches[k] for k in ("quantize", "dequantize")})
+    say("path", path="comm", launches=launches)
+    if not (launches["quantize"] > 0 and launches["dequantize"] > 0):
+        failures.append(f"quantize/dequantize did not run on the comm path: {launches}")
+
+    # comm_small's layer output: within Y_RTOL of the reference's, and the
+    # same from run to run on the card
+    doc, arrays = _comm_fixture("comm_small")
+    prob = convert.comm_problem(Scenario.from_dict(doc["report"]["scenario"]),
+                                arrays, device=dev)
+    for payload, kw in doc["apply_moe"].items():
+        run = lambda: apply_moe(prob.params, prob.cfg, prob.plan, None,  # noqa: E731
+                                prob.sample_x, MoEOptions(**kw))[0]
+        y1, y2 = run(), run()
+        want = _bf16_bits_to_f32(arrays[f"y_{payload}"])
+        got = y1.float().cpu().numpy()
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        same = bool(torch.equal(y1, y2))
+        ok = bool(np.isfinite(got).all()) and err <= Y_RTOL * scale and same
+        say("path", comm="comm_small apply_moe", payload=payload,
+            max_abs_err=err, max_abs_y=scale, rtol=Y_RTOL,
+            identical_across_runs=same, ok=ok)
+        if not ok:
+            failures.append(f"comm_small apply_moe {payload}")
     return failures
 
 
@@ -708,6 +905,127 @@ def phase_scale(dev, stats):
            "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
     stats["scale"].append(rec)
     say("scale", **rec)
+    del problem, ev, log
+    torch.cuda.empty_cache()
+    scale_moe(dev, stats)
+
+
+def scale_moe(dev, stats):
+    """autotune_moe on one full-width MoE layer of SCALE_ARCH."""
+    import torch
+    from repro_torch.comm.dse_comm import CommDSEProblem, autotune_moe, route_trace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_pack import kernel as qk
+    from repro_torch.models import SINGLE_POD_PLAN
+    from repro_torch.models.moe import apply_moe, init_moe
+
+    cfg = get_config(SCALE_ARCH)
+    b, s = SCALE_TOKENS
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_moe(torch.Generator(dev).manual_seed(0), cfg, SINGLE_POD_PLAN)
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weight_gb = sum(params[k].numel() * params[k].element_size()
+                    for k in ("w1", "wg", "w2")) / 1e9
+    t0 = time.perf_counter()
+    route_trace(params, cfg, x, 16)
+    t_route = time.perf_counter() - t0
+
+    walls = {}
+    real = {h: getattr(CommDSEProblem, h) for h in ("surrogate_batch", "verify_batch")}
+
+    def timed(hook):
+        def wrapped(self, cands):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[hook](self, cands)
+            torch.cuda.synchronize()
+            walls[hook] = walls.get(hook, 0.0) + time.perf_counter() - t
+            return out
+        return wrapped
+    before = _read_counters()
+    try:
+        for hook in real:
+            setattr(CommDSEProblem, hook, timed(hook))
+        t0 = time.perf_counter()
+        result, problem = autotune_moe(params, cfg, SINGLE_POD_PLAN, None, x,
+                                       model_tp=16)
+        torch.cuda.synchronize()
+        t_tune = time.perf_counter() - t0
+    finally:
+        for hook, fn in real.items():
+            setattr(CommDSEProblem, hook, fn)
+    after = _read_counters()
+    launches = {k: after[k] - before[k] for k in ("quantize", "dequantize")}
+
+    tokens = b * s
+    errors = []
+    if int(problem.loads.sum()) != tokens * cfg.moe_topk:
+        errors.append(f"route_trace loads sum {int(problem.loads.sum())} != "
+                      f"{tokens * cfg.moe_topk}")
+    if result.best is None or result.best_verify.drop_rate > 2e-2:
+        errors.append(f"no champion within the 2e-2 drop SLA: {result.best}")
+    for _, v, _, _ in result.evaluated:
+        if int(v.meta["expert_load"].sum()) != tokens * cfg.moe_topk:
+            errors.append("a verified candidate's expert loads do not sum "
+                          "to tokens x k")
+
+    # the int8 payload against bf16 at the champion's capacity and schedule;
+    # one layer call each, timed, and the expert FFN's rate in it
+    best = result.best
+    cap = max(int(math.ceil(tokens * cfg.moe_topk / cfg.moe_experts
+                            * best.capacity_factor)), 1)
+    ffn_flops = 6 * cfg.moe_experts * cap * cfg.d_model * cfg.d_ff
+    ys, layer_s = {}, {}
+    for payload in ("bf16", "int8"):
+        opts = dataclasses.replace(best, payload=payload).moe_options(cfg.router)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys[payload], _ = apply_moe(params, cfg, SINGLE_POD_PLAN, None, x, opts)
+        torch.cuda.synchronize()
+        layer_s[payload] = time.perf_counter() - t0
+    yb, yi = ys["bf16"].double(), ys["int8"].double()
+    rel = float(torch.linalg.vector_norm(yi - yb) / torch.linalg.vector_norm(yb))
+    finite = bool(torch.isfinite(yi).all() and torch.isfinite(yb).all())
+    if not finite:
+        errors.append("the layer output is not finite")
+    rows = dispatch_rows(tokens, cfg.moe_topk, cfg.moe_experts,
+                         best.capacity_factor, best.a2a_chunks)
+    buf = torch.randn((rows, cfg.d_model), device=dev).to(torch.bfloat16)
+    q, sc = qk.quantize(buf)
+    q_ms = cuda_ms(lambda: qk.quantize(buf), reps=20)
+    d_ms = cuda_ms(lambda: qk.dequantize(q, sc, torch.bfloat16), reps=20)
+    rec = {"run": f"autotune_moe {SCALE_ARCH} layer", "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "experts": cfg.moe_experts, "top_k": cfg.moe_topk,
+           "tokens": tokens, "model_tp": 16, "expert_weights_gb": weight_gb,
+           "best": best.short(), "best_drop_rate": result.best_verify.drop_rate,
+           "best_p99_latency_ns": result.best_verify.p99_latency_ns,
+           "verified": len(result.evaluated),
+           "init_s": t_init, "route_trace_s": t_route,
+           "autotune_moe_s": t_tune,
+           "stage2_s": walls.get("surrogate_batch", 0.0),
+           "stage4_s": walls.get("verify_batch", 0.0),
+           "launches": launches,
+           "dispatch_rows_per_chunk": rows,
+           "quantize_bf16_ms_at_this_shape": q_ms,
+           "dequantize_bf16_ms_at_this_shape": d_ms,
+           "int8_vs_bf16_rel_err": rel,
+           "champion_layer_s": layer_s, "champion_capacity": cap,
+           "champion_ffn_tflop": ffn_flops / 1e12,
+           "champion_ffn_tflops_per_s_bf16": ffn_flops / layer_s["bf16"] / 1e12,
+           "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
+           "errors": errors}
+    stats["scale"].append(rec)
+    say("scale", **rec)
+    del params, x, ys, buf, q, sc, problem, result
+    torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError(f"scale moe: {errors}")
+    if not (launches["quantize"] > 0 and launches["dequantize"] > 0):
+        raise AssertionError(f"autotune_moe ran no int8 candidate: {launches}")
 
 
 def _profiled(fn):
@@ -803,6 +1121,13 @@ KERNELS = {
     "parse_headers": {"source": "src/repro_torch/csrc/parser.cu",
                       "replaces": "src/repro/kernels/parser/kernel.py:45",
                       "main": ("parser_hft", "B9600")},
+    # moe_dispatch's champion: one bf16 chunk of its dispatch buffer
+    "quantize": {"source": "src/repro_torch/csrc/quant_pack.cu",
+                 "replaces": "src/repro/kernels/quant_pack/kernel.py:45",
+                 "main": ("quantize_bf16", "moe_dispatch")},
+    "dequantize": {"source": "src/repro_torch/csrc/quant_pack.cu",
+                   "replaces": "src/repro/kernels/quant_pack/kernel.py:69",
+                   "main": ("dequantize_bf16", "moe_dispatch")},
 }
 
 
@@ -871,7 +1196,7 @@ def main(argv=None) -> int:
     say("build", seconds=time.perf_counter() - t0, build_dir=str(BUILD_DIR),
         ptxas=regs)
 
-    stats = {"forms": [], "scale": [], "switch": [], "launches": {}}
+    stats = {"forms": [], "scale": [], "switch": [], "comm": [], "launches": {}}
     failed = []
     for name, fn in (("kernels", phase_kernels), ("path", phase_path),
                      ("scale", phase_scale), ("profile", phase_profile)):

@@ -94,14 +94,20 @@ def _parse_kv(pairs: Optional[Sequence[str]]) -> Dict[str, Any]:
 
 
 def _load_scenario(target: str):
-    """Registry name, or path to a Scenario JSON file."""
+    """Registry name, or path to a Scenario JSON file (or to a report that
+    ``run --out`` wrote, such as ``tests/golden/comm_small.json``: its
+    scenario reruns)."""
     from .registry import registry
     from .scenario import Scenario
     if target in registry:
         return registry[target]
     if target.endswith(".json"):
         try:
-            return Scenario.load(target)
+            with open(target) as f:
+                doc = json.load(f)
+            if isinstance(doc, dict) and "scenario" in doc and "pareto" in doc:
+                doc = doc["scenario"]
+            return Scenario.from_dict(doc)
         except (OSError, json.JSONDecodeError) as e:
             raise SystemExit(
                 f"cannot load scenario file {target!r}: {e}") from e

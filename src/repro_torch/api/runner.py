@@ -19,9 +19,10 @@ trace + feature analysis.  The campaign report carries aggregate stage-2
 The port's copy of the JAX package's ``api/runner.py``.  Every entry point
 takes ``device`` (default: the first CUDA device; raises without one),
 where the batched stages, back-annotation and the cycle-level switch run.
-Single-switch scenarios run here; a scenario with a topology (ROADMAP
-queue 1, item 7), a comm-domain scenario (item 10) or a mesh (item 8)
-raises ``NotImplementedError``, as do search checkpoints.
+Single-switch and comm-domain scenarios run here; a scenario with a
+topology (ROADMAP queue 1, item 7) or a mesh (item 8) raises
+``NotImplementedError``, as do search checkpoints.  (A comm scenario runs
+its fabric on one device whatever its mesh, as in the reference.)
 """
 
 from __future__ import annotations
@@ -89,11 +90,52 @@ def _default_budget(scenario: Scenario) -> ResourceBudget:
     return ResourceBudget(dict(ALVEO_U45N))
 
 
-def _build_comm_problem(scenario: Scenario) -> DSEProblem:
-    raise NotImplementedError(
-        f"scenario {scenario.name!r}: the comm domain (CommDSEProblem and the "
-        "MoE models it samples) is not ported to repro_torch yet (ROADMAP "
-        "queue 1, item 10)")
+def _build_comm_problem(scenario: Scenario, device=None,
+                        tensors=None) -> DSEProblem:
+    """The comm scenario's ``CommDSEProblem`` on ``device``: the MoE layer's
+    parameters and the routing sample drawn from the port's seeded
+    generators (``seed`` and ``seed + 1`` of the scenario; they cannot give
+    the reference's ``jax.random`` bits).  ``tensors`` (name -> tensor: any
+    of ``router``, ``hash_proj``, ``w1``, ``wg``, ``w2`` and the sample
+    ``x``) replaces the draw of each tensor it names; ``repro_torch.convert``
+    carries the reference's across this way.  The fabric runs on one
+    device; ``model_tp`` is the tensor extent the analytic model prices."""
+    import torch
+
+    from repro_torch.comm.dse_comm import CommDSEProblem
+    from repro_torch.device import resolve_device
+    from repro_torch.models import SINGLE_POD_PLAN, ModelConfig
+    from repro_torch.models.moe import init_moe
+
+    dev = resolve_device(device)
+    c = scenario.comm
+    cfg = ModelConfig(name=scenario.name, family="moe", n_layers=1,
+                      d_model=c.d_model, n_heads=c.n_heads,
+                      n_kv_heads=c.n_kv_heads, d_ff=c.d_ff, vocab=c.vocab,
+                      moe_experts=c.moe_experts, moe_topk=c.moe_topk,
+                      router=c.router)
+    plan = SINGLE_POD_PLAN
+    tensors = dict(tensors or {})
+    params = init_moe(torch.Generator(dev).manual_seed(c.seed), cfg, plan)
+    x = tensors.pop("x", None)
+    if x is None:
+        x = torch.randn((c.batch, c.seq, c.d_model),
+                        generator=torch.Generator(dev).manual_seed(c.seed + 1),
+                        dtype=torch.float32, device=dev).to(torch.bfloat16)
+    unknown = set(tensors) - set(params)
+    if unknown:
+        raise ValueError(f"unknown MoE tensors {sorted(unknown)}")
+    for name, t in tensors.items():
+        if t.shape != params[name].shape or t.dtype != params[name].dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(params[name].shape)} {params[name].dtype}")
+        params[name] = t.to(dev)
+    want = (c.batch, c.seq, c.d_model)
+    if tuple(x.shape) != want or x.dtype != torch.bfloat16:
+        raise ValueError(f"x: {tuple(x.shape)} {x.dtype}, expected {want} "
+                         "torch.bfloat16")
+    return CommDSEProblem(params, cfg, plan, None, x.to(dev),
+                          model_tp=c.model_tp)
 
 
 def build_problem(
@@ -115,7 +157,9 @@ def build_problem(
     mesh = MeshSpec.coerce(mesh) if mesh is not None else scenario.mesh
     budget = scenario.budget or _default_budget(scenario)
     if scenario.domain == "comm":
-        return _build_comm_problem(scenario), scenario.sla, budget
+        # as in the reference, the comm fabric runs on one device whatever
+        # the scenario's mesh
+        return _build_comm_problem(scenario, device), scenario.sla, budget
     from repro_torch.sim.switch_problem import SwitchDSEProblem
     if scenario.topology is not None:
         raise NotImplementedError(
@@ -363,7 +407,8 @@ def _search_checkpoint_dir(scenario: Scenario, *, campaign: bool = False) -> Opt
 
 
 def run_scenario(scenario: Union[Scenario, str], *, verbose: bool = False,
-                 resume: bool = False, mesh=None, device=None) -> ScenarioReport:
+                 resume: bool = False, mesh=None, device=None,
+                 problem: Optional[DSEProblem] = None) -> ScenarioReport:
     """One spec in, verified Pareto front out (the quickstart in one call).
 
     Runs the same staged composition as ``run_dse`` (inlined only to time
@@ -379,12 +424,18 @@ def run_scenario(scenario: Union[Scenario, str], *, verbose: bool = False,
 
     ``mesh`` (a ``MeshSpec`` / device count, winning over ``scenario.mesh``)
     is not ported yet and raises.  ``device`` is where the scenario runs
-    (default: the first CUDA device).
+    (default: the first CUDA device).  ``problem`` is one already built for
+    ``scenario`` (``repro_torch.convert.comm_problem`` builds one with the
+    reference's tensors); by default it is built here, inside the wall time.
     """
     if isinstance(scenario, str):
         scenario = registry[scenario]
     t0 = time.perf_counter()
-    problem, sla, budget = build_problem(scenario, mesh=mesh, device=device)
+    if problem is None:
+        problem, sla, budget = build_problem(scenario, mesh=mesh, device=device)
+    else:
+        sla = scenario.sla
+        budget = scenario.budget or _default_budget(scenario)
     fid = scenario.fidelity
     if scenario.search is not None:
         t2 = time.perf_counter()

@@ -8,19 +8,27 @@ name, so it accepts the reference's objects while ``repro`` stays out of this
 package's imports.  ``Trace.save``/``load`` keep the reference's ``.npz``
 format, so a saved trace loads in either package.  (A scenario crosses over
 as its dict: ``repro_torch.api.Scenario.from_dict(scenario.to_dict())``.)
+
+The comm domain's tensors cross as NumPy arrays: ``moe_tensors`` turns the
+reference's ``init_moe`` parameters and routing sample (bfloat16 carried as
+its uint16 bit pattern) into the port's tensors, and ``comm_problem`` /
+``run_comm_scenario`` build a comm scenario's problem, or run it, with them
+in place of the port's own seeded draws (which cannot give the reference's
+``jax.random`` bits).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core import archspec, binding, dse, dsl, search
 from repro_torch.traces.base import Trace
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "moe_tensors", "comm_problem", "run_comm_scenario"]
 
 _ENUMS = {cls.__name__: cls for cls in (archspec.ForwardTableKind,
                                          archspec.VOQKind,
@@ -60,3 +68,44 @@ def from_reference(obj: Any) -> Any:
         return obj
     raise TypeError(f"no repro_torch counterpart for {type(obj).__module__}."
                     f"{type(obj).__qualname__}")
+
+
+# --------------------------------------------------------------------------
+# the comm domain's tensors
+# --------------------------------------------------------------------------
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)                           # an owned, writable copy
+    if a.dtype.name == "bfloat16":            # NumPy's bfloat16 (ml_dtypes)
+        a = a.view(np.uint16)
+    if a.dtype == np.uint16:                  # a bfloat16 bit pattern
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def moe_tensors(arrays: Mapping[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """NumPy arrays -> tensors on ``device`` (default: the first CUDA
+    device).  uint16 arrays (and NumPy bfloat16 ones) are bfloat16 bit
+    patterns; every other dtype maps to its torch twin."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in arrays.items()}
+
+
+def comm_problem(scenario, arrays: Mapping[str, np.ndarray], device=None):
+    """The comm scenario's ``CommDSEProblem`` with ``arrays`` (any of
+    ``router``, ``hash_proj``, ``w1``, ``wg``, ``w2`` and the routing sample
+    ``x``; other keys are ignored) in place of the port's seeded draws."""
+    from repro_torch.api.runner import _build_comm_problem
+    names = ("router", "hash_proj", "w1", "wg", "w2", "x")
+    return _build_comm_problem(
+        scenario, device,
+        moe_tensors({k: v for k, v in arrays.items() if k in names}, device))
+
+
+def run_comm_scenario(scenario, arrays: Mapping[str, np.ndarray], device=None,
+                      **kw):
+    """``run_scenario`` on the comm scenario with ``comm_problem``'s problem."""
+    from repro_torch.api.runner import run_scenario
+    return run_scenario(scenario, device=device,
+                        problem=comm_problem(scenario, arrays, device), **kw)

@@ -4,6 +4,7 @@
   netsim/  - admission-gated port replay and the fixed point (stage 4)
   islip/   - batched iSLIP matching (the cycle-level switch's scheduler)
   parser/  - protocol header field extraction (the switch's ingress)
+  quant_pack/ - int8 payload quantize/dequantize (the MoE dispatch fabric)
 
 Each family keeps the JAX package's triple: ``kernel.py`` binds the CUDA
 kernel (sources in ``repro_torch/csrc/``, built by ``build.py`` at first
