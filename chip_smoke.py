@@ -21,9 +21,15 @@ Phases, one result line each; any failure exits non-zero without the final
            comm_small and moe_dispatch and of one full-width
            qwen3-moe-235b-a22b layer, [131072, 4096], with all-zero groups
            and exact .5 ties) against its plain PyTorch version on the card,
-           bitwise (torch.equal), at the paths' shapes; ms per call for
+           bitwise (torch.equal), at the paths' shapes; the attention
+           kernel in float32 (atol = rtol = 3e-5) and bfloat16 at
+           llama3.2-1b's prefill (atol 1e-3, rtol 2**-7 against the plain
+           version in bfloat16 at the kernel's tiles, a mask one key off
+           outside that bar; within 2e-2 of the plain version in float32),
+           with a sliding window, and PyTorch's SDPA timed beside it; the SSD kernel at mamba2-780m's prefill and a ragged length
+           (atol = rtol = 2e-3; y and the final state); ms per call for
            both, and the bound.
-  path     two main paths, each with every kernel's launch counter set to 0
+  path     four main paths, each with every kernel's launch counter set to 0
            just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2 and
            hft_codesign with the settings their golden reports record
@@ -46,7 +52,17 @@ Phases, one result line each; any failure exits non-zero without the final
            against the reference's runs stored there (report, each verified
            candidate's expert loads and drop rate); comm_small's layer
            output against the reference's within a stated tolerance and
-           identical from run to run; quantize and dequantize must launch.
+           identical from run to run; quantize and dequantize must launch;
+           (d) the model serving path at full width, on the port's seeded
+           init: llama3.2-1b (16 layers) and mamba2-780m (48 layers)
+           prefill of 4 x 8,192 tokens, twice each (the reference's
+           prefill_32k cut from 32 x 32,768), with flash_attention launched
+           16 times and ssd_scan 48 times per prefill (wall, tokens/s, the
+           kernels' share from CUDA events around each launch, peak
+           memory); ServeEngine on llama3.2-1b serving 8 requests (4 slots,
+           max_new 16, s_max 256); and both models' prefill (2 layers, 1 x
+           1,024 tokens, weights from the NumPy seed) against the JAX
+           package's logits in tests/torch_golden/model_{llama,mamba}.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
@@ -100,11 +116,23 @@ Y_RTOL = 2e-2
 SCALE_ARCH = "qwen3-moe-235b-a22b"
 SCALE_TOKENS = (8, 1024)
 
-#: H100 SXM peaks used for bounds: HBM bandwidth and non-tensor FP64/FP32
-#: (NVIDIA's data sheet, at the 700 W power limit); 32-bit integer work is
-#: bounded by the float32 rate, which no integer pipe exceeds
+#: H100 SXM peaks used for bounds: HBM bandwidth, non-tensor FP64/FP32 and
+#: dense bf16 tensor-core work (NVIDIA's data sheet, at the 700 W power
+#: limit), keyed by the operands' bytes per element; 32-bit integer work is
+#: bounded by the float32 rate, which no integer pipe exceeds, and float32
+#: attention/SSD work by it too (TF32 would not keep float32's digits)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {8: 34e12, 4: 67e12}
+PEAK_FLOPS = {8: 34e12, 4: 67e12, 2: 989e12}
+
+#: the serving path (d): full-width prefills of B x S tokens, the reference's
+#: prefill_32k shape (configs/shapes.py: 32 x 32,768) cut to 4 x 8,192
+SERVE_PREFILL = {"llama3.2-1b": 16, "mamba2-780m": 48}   # arch -> layers (all)
+PREFILL_BS = (4, 8192)
+#: ServeEngine at the launcher's defaults on llama3.2-1b at full width
+SERVE_ENGINE = dict(requests=8, slots=4, max_new=16, s_max=256)
+#: tests/torch_golden/model_{llama,mamba}: the reference's last-token prefill
+#: logits at full width, 2 layers, B 1, S 1,024, attn_impl="blockwise"
+MODEL_FIXTURES = {"model_llama": "llama3.2-1b", "model_mamba": "mamba2-780m"}
 
 
 # --------------------------------------------------------------------------
@@ -312,6 +340,8 @@ def phase_kernels(dev, stats):
     ok &= kernels_islip(dev, stats)
     ok &= kernels_parser(dev, stats)
     ok &= kernels_quant(dev, stats)
+    ok &= kernels_flash(dev, stats)
+    ok &= kernels_ssd(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -486,9 +516,210 @@ def kernels_quant(dev, stats):
     return ok
 
 
+def _attn_inputs(b, hq, hkv, s, d, dev, dtype, seed):
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((b, hq, s, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def _attn_work(b, hq, hkv, s, d, window, item):
+    """(bytes moved, FLOP) of causal attention: q, k, v read once, o
+    written once; 4·D FLOP per visible (query, key) pair."""
+    w = window or s
+    pairs = sum(min(i + 1, w) for i in range(s)) if window else s * (s + 1) // 2
+    return (2 * b * hq * s * d + 2 * b * hkv * s * d) * item, 4 * b * hq * d * pairs
+
+
+#: (form, shape name, B, Hq, Hkv, S, D, window, dtype): float32 at the
+#: reference's kernel-test shape, bfloat16 at llama3.2-1b's prefill, a
+#: window at hymba-1.5b's heads and sliding window, and the other head dims
+#: of the zoo (128: the large dense/MoE/VLM archs; 32: the smoke configs,
+#: which take the FMA path in bfloat16 too)
+FLASH_FORMS = (("f32_causal", "gqa_small", 2, 8, 2, 256, 64, 0, "f32"),
+               ("f32_window", "gqa_window", 2, 8, 2, 2048, 64, 1024, "f32"),
+               ("bf16_causal", "llama_prefill", 4, 32, 8, 8192, 64, 0, "bf16"),
+               ("bf16_window", "hymba_window", 1, 25, 5, 4096, 64, 1024, "bf16"),
+               ("bf16_d128", "gqa_d128", 2, 16, 4, 1024, 128, 0, "bf16"),
+               ("bf16_d32", "gqa_d32", 2, 4, 2, 1000, 32, 0, "bf16"))
+
+
+#: bfloat16 bar of the attention kernel against its plain version run in
+#: bfloat16 at the kernel's 64-key tiles (the same P rounding): outputs agree
+#: to within an output ulp (rtol 2**-7) plus FLASH_BF16_ATOL, 17x under the
+#: typical |o| of a late row at S 8,192 (~0.017)
+FLASH_BF16_ATOL = 1e-3
+FLASH_TILE = 64
+
+
+def kernels_flash(dev, stats):
+    """The attention kernel against its plain version: float32 at
+    atol = rtol = 3e-5 (tests/test_kernels.py's bar); bfloat16 against the
+    plain version run in bfloat16 at the kernel's tiles at atol =
+    FLASH_BF16_ATOL, rtol = 2**-7, and within 2e-2 of it run in float32.
+    Each bfloat16 form also shows that its bar sees a mask one key off: the
+    plain version with the causal edge (and window) moved by one key falls
+    outside it on the rows of the sequence's second half.  SDPA is timed at
+    the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import blockwise_ref
+
+    ok = True
+    for form, shape, b, hq, hkv, s, d, window, dt in FLASH_FORMS:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q, k, v = _attn_inputs(b, hq, hkv, s, d, dev, dtype, seed=s + hq)
+        kern = lambda: fk.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+        plain = lambda: blockwise_ref(q, k, v, causal=True, window=window)     # noqa: E731
+        n0 = fk.LAUNCHES
+        got = kern()
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES == n0 + 1, "flash_attention did not launch the kernel"
+        rec = {"kernel": "flash_attention", "form": form, "shape": shape, "B": b,
+               "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window}
+        if dt == "f32":
+            want = plain()
+            err = float((got - want).abs().max())
+            good = bool(torch.allclose(got, want, atol=3e-5, rtol=3e-5))
+        else:
+            want = blockwise_ref(q, k, v, causal=True, window=window, block_k=FLASH_TILE)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            # the largest share of the bar taken; allclose passes at <= 1
+            rec["bar_share"] = float((diff / (FLASH_BF16_ATOL
+                                              + 2 ** -7 * want.float().abs())).max())
+            good = rec["bar_share"] <= 1.0
+            del diff
+            f32 = blockwise_ref(q.float(), k.float(), v.float(), causal=True,
+                                window=window)
+            rec["max_abs_err_vs_f32"] = float((got.float() - f32).abs().max())
+            good &= rec["max_abs_err_vs_f32"] <= 2e-2
+            del f32
+            # the bar against a mask one key off, on rows S/2.. (row r sees
+            # keys r - window .. r - 1 instead of r - window + 1 .. r)
+            off = blockwise_ref(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1], causal=True,
+                                window=window, block_k=FLASH_TILE)[:, :, s // 2:]
+            late = got[:, :, 1 + s // 2:].float()
+            rec["one_key_off_caught"] = not bool(torch.allclose(
+                late, off.float(), atol=FLASH_BF16_ATOL, rtol=2 ** -7))
+            good &= rec["one_key_off_caught"]
+            del off, late
+        del want
+        moved, flops = _attn_work(b, hq, hkv, s, d, window, got.element_size())
+        bound, by = _bound(moved, flops, got.element_size())
+        rec.update({"max_abs_err": err, "within_tolerance": good,
+                    "ms": cuda_ms(kern, reps=5), "plain_ms": wall_ms(plain),
+                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+        rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+        if shape == "llama_prefill":
+            rec["library_ms"] = cuda_ms(lambda: _sdpa(F, q, k, v), reps=5)
+        stats["forms"].append(rec)
+        say("kernels", **rec)
+        ok &= good
+        del q, k, v, got
+    return ok
+
+
+def _sdpa(F, q, k, v):
+    """PyTorch's fused attention on the same inputs: the library yardstick,
+    timed here and used nowhere in the port."""
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def _ssd_inputs(bh, heads, s, p, n, dev, seed):
+    """The model's distributions at mamba2-780m's init: dt = softplus(N),
+    a = -1 (so a chunk's sum of dt·a passes -88: the overflow hazard), B
+    and C per sequence ([BH / heads, S, N])."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((bh, s, p), generator=g, device=dev)
+    dt = F.softplus(torch.randn((bh, s), generator=g, device=dev))
+    a = -torch.ones((bh,), device=dev)
+    b = torch.randn((bh // heads, s, n), generator=g, device=dev) * n ** -0.5
+    c = torch.randn((bh // heads, s, n), generator=g, device=dev) * n ** -0.5
+    return x, dt, a, b, c
+
+
+#: (shape name, heads per sequence, BH, S, P, N, chunk of the plain
+#: version): mamba2-780m's prefill (4 x 48 heads, P 64, N 128), a length
+#: that no 64 or 128 divides, and hymba-1.5b's SSM heads (2 x 50, N 16)
+SSD_FORMS = (("mamba_prefill", 48, 192, 8192, 64, 128, 128),
+             ("mamba_ragged", 48, 192, 1000, 64, 128, 200),
+             ("hymba_prefill", 50, 100, 2048, 64, 16, 128))
+
+
+def _ssd_head_flops(s, p, n):
+    """The least FLOP one head's SSD needs over S steps.  Chunked at length
+    c, a chunk costs C·Bᵀ, M·x, the inter-chunk product and the state update,
+    2·c·(c·N + c·P + 2·P·N), plus P·N to decay the state; the chunk length
+    is free, so take the cheapest (c = 1 is the plain recurrence)."""
+    return min(-(-s // c) * (2 * c * (c * n + c * p + 2 * p * n) + p * n)
+               for c in range(1, min(s, 256) + 1))
+
+
+def kernels_ssd(dev, stats):
+    """The SSD kernel against its plain version at atol = rtol = 2e-3
+    (tests/test_kernels.py's bar), y and the final state; with bfloat16 x, y
+    (rounded to bfloat16 once) against the plain version run in float32
+    with rtol one bfloat16 ulp, 2**-8."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    ok = True
+    for shape, heads, bh, s, p, n, chunk in SSD_FORMS:
+        x, dt, a, b, c = _ssd_inputs(bh, heads, s, p, n, dev, seed=s)
+        bfull = torch.repeat_interleave(b, heads, dim=0)
+        cfull = torch.repeat_interleave(c, heads, dim=0)
+        want_y, want_st = ssd_chunked_ref(x, dt, a, bfull, cfull, chunk=chunk,
+                                          return_state=True)
+        for xt in ("f32", "bf16"):
+            xin = x if xt == "f32" else x.to(torch.bfloat16)
+            if xt == "bf16":
+                want_y, want_st = ssd_chunked_ref(xin.float(), dt, a, bfull, cfull,
+                                                  chunk=chunk, return_state=True)
+            kern = lambda: sk.ssd_scan(xin, dt, a, b, c, return_state=True)  # noqa: E731
+            plain = lambda: ssd_chunked_ref(xin, dt, a, bfull, cfull,        # noqa: E731
+                                            chunk=chunk, return_state=True)
+            n0 = sk.LAUNCHES
+            y, st = kern()
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES == n0 + 1, "ssd_scan did not launch the kernel"
+            rtol = 2e-3 if xt == "f32" else 2.0 ** -8
+            good = (bool(torch.allclose(y.float(), want_y, atol=2e-3, rtol=rtol))
+                    and bool(torch.allclose(st, want_st, atol=2e-3, rtol=2e-3))
+                    and bool(torch.isfinite(y).all()))
+            err = max(float((y.float() - want_y).abs().max()),
+                      float((st - want_st).abs().max()))
+            item = xin.element_size()
+            # x read and y written in x's dtype; dt, a, B and C (per
+            # sequence) read and the state written in float32
+            moved = (2 * bh * s * p * item + bh * s * 4 + bh * 4
+                     + 2 * (bh // heads) * s * n * 4 + bh * p * n * 4)
+            bound, by = _bound(moved, bh * _ssd_head_flops(s, p, n), 4)
+            rec = {"kernel": "ssd_scan", "form": f"x_{xt}", "shape": shape, "BH": bh,
+                   "S": s, "P": p, "N": n, "max_abs_err": err,
+                   "within_tolerance": good, "ms": cuda_ms(kern, reps=5),
+                   "plain_ms": wall_ms(plain), "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+            stats["forms"].append(rec)
+            say("kernels", **rec)
+            ok &= good
+            del y, st
+        del x, dt, a, b, c, bfull, cfull, want_y, want_st
+    torch.cuda.empty_cache()
+    return ok
+
+
 def _counters():
     """kernel name -> (the module of its wrapper, the counter's name)"""
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.islip import kernel as ik
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.parser import kernel as pk
     from repro_torch.kernels.quant_pack import kernel as qk
@@ -497,7 +728,8 @@ def _counters():
             "islip_schedule": (ik, "LAUNCHES"),
             "parse_headers": (pk, "LAUNCHES"),
             "quantize": (qk, "QUANTIZE_LAUNCHES"),
-            "dequantize": (qk, "DEQUANTIZE_LAUNCHES")}
+            "dequantize": (qk, "DEQUANTIZE_LAUNCHES"),
+            "flash_attention": (fk, "LAUNCHES"), "ssd_scan": (sk, "LAUNCHES")}
 
 
 def _reset_counters():
@@ -512,7 +744,7 @@ def _read_counters():
 def phase_path(dev, stats):
     """Two main paths on the card, each with fresh launch counters."""
     failures = (path_golden(dev, stats) + path_switch(dev, stats)
-                + path_comm(dev, stats))
+                + path_comm(dev, stats) + path_serving(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -717,6 +949,181 @@ def path_comm(dev, stats):
             identical_across_runs=same, ok=ok)
         if not ok:
             failures.append(f"comm_small apply_moe {payload}")
+    return failures
+
+
+def _kernel_timer(log):
+    """Bracket each launch of the attention and SSD kernels with CUDA events
+    (no host sync) by wrapping their wrappers; returns the undo."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    real = {"flash_attention": (fk, fk.flash_attention), "ssd_scan": (sk, sk.ssd_scan)}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            log.append((name, e0, e1))
+            return out
+        return timed
+
+    for name, (mod, fn) in real.items():
+        setattr(mod, name, wrap(name, fn))
+
+    def undo():
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+    return undo
+
+
+def _kernel_ms(log, start):
+    out = {}
+    for name, e0, e1 in log[start:]:
+        out[name] = out.get(name, 0.0) + e0.elapsed_time(e1)
+    return out
+
+
+def path_serving(dev, stats):
+    """(d) the model serving path at full width: llama3.2-1b and
+    mamba2-780m prefill (all layers) of 4 x 8,192 tokens, ServeEngine on
+    llama3.2-1b, and both models' prefill against the reference's
+    full-width fixtures; flash_attention and ssd_scan must launch once per
+    attention / SSM layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import SINGLE_POD_PLAN as PLAN
+    from repro_torch.models import transformer as T
+
+    failures = []
+    t_path = time.perf_counter()
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    log = []
+    undo = _kernel_timer(log)
+    try:
+        _reset_counters()
+        b, s = PREFILL_BS
+        for arch, layers in SERVE_PREFILL.items():
+            cfg = get_config(arch)
+            kernel = "flash_attention" if cfg.has_attention else "ssd_scan"
+            t0 = time.perf_counter()
+            params = T.init_params(torch.Generator(dev).manual_seed(0), cfg, PLAN)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            tok = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                                generator=torch.Generator(dev).manual_seed(1))
+            for run in (1, 2):
+                before, n_log = _read_counters(), len(log)
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, state = T.prefill(params, cfg, PLAN, None, {"tokens": tok})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = _read_counters()
+                launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                kms = _kernel_ms(log, n_log)
+                ok = (tuple(logits.shape) == (b, cfg.vocab)
+                      and bool(torch.isfinite(logits.float()).all())
+                      and int(state["pos"]) == s
+                      and launches == {kernel: layers})
+                rec = {"serving": f"{arch} prefill", "run": run, "layers": layers,
+                       "B": b, "S": s, "wall_s": wall, "tokens_per_s": b * s / wall,
+                       "launches": launches, "kernel_ms": kms,
+                       "kernel_share": sum(kms.values()) / (wall * 1e3),
+                       "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+                       "init_s": init_s, "ok": ok}
+                stats["serving"].append(rec)
+                say("path", **rec)
+                if not ok:
+                    failures.append(f"{arch} prefill run {run}")
+                del logits, state
+            if arch == "llama3.2-1b":
+                failures += _serve_engine(cfg, params, dev, stats)
+            del params, tok
+            torch.cuda.empty_cache()
+        for stem, arch in MODEL_FIXTURES.items():
+            failures += _model_fixture(stem, arch, dev, stats)
+    finally:
+        undo()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    launches = _read_counters()
+    stats["launches"].update({k: launches[k] for k in ("flash_attention", "ssd_scan")})
+    say("path", path="serving", launches=launches,
+        seconds=time.perf_counter() - t_path)
+    if not (launches["flash_attention"] > 0 and launches["ssd_scan"] > 0):
+        failures.append(f"flash_attention/ssd_scan did not run on the serving path: "
+                        f"{launches}")
+    return failures
+
+
+def _serve_engine(cfg, params, dev, stats):
+    """The launcher's serving loop (``launch.serve.serve``) at its defaults:
+    every request served with max_new tokens, each a valid token id."""
+    import torch
+    from repro_torch.launch import serve as launcher
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    res = launcher.serve(cfg, params, **SERVE_ENGINE)
+    done, wall, ticks = res.pop("done"), res["wall_s"], res["ticks"]
+    ok = (res["served"] == SERVE_ENGINE["requests"]
+          and all(len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out)
+                  for r in done))
+    rec = {"serving": f"{cfg.name} ServeEngine", **SERVE_ENGINE, **res,
+           "ms_per_tick": wall * 1e3 / max(ticks, 1),
+           "tokens_per_s": res["tokens"] / wall,
+           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20, "ok": ok}
+    stats["serving"].append(rec)
+    say("path", **rec)
+    return [] if ok else [f"{cfg.name} ServeEngine"]
+
+
+def _model_fixture(stem, arch, dev, stats):
+    """The card's prefill, from the fixture's NumPy-seeded weights, against
+    the reference's logits, elementwise at the atol = rtol the fixture
+    records for each dtype; ``worst`` is the largest |diff| / (atol +
+    rtol·|want|), which passes at or below 1."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import SINGLE_POD_PLAN as PLAN
+    from repro_torch.models import transformer as T
+
+    meta, arrays = _comm_fixture(stem)
+    cfg = dataclasses.replace(get_config(arch), n_layers=meta["n_layers"],
+                              attn_impl=meta["attn_impl"])
+    t0 = time.perf_counter()
+    params = convert.model_params(convert.seeded_model_arrays(cfg, meta["seed"]), dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    tok = torch.from_numpy(arrays["tokens"]).long().to(dev)
+    failures = []
+    for dtype, key in (("float32", "logits_f32"), ("bfloat16", "logits_bf16")):
+        logits, _ = T.prefill(params, dataclasses.replace(cfg, dtype=dtype), PLAN, None,
+                              {"tokens": tok})
+        got = logits.float().cpu().numpy()
+        want = arrays[key] if key == "logits_f32" else _bf16_bits_to_f32(arrays[key])
+        tol = meta["tolerance"][dtype]
+        diff = np.abs(got - want)
+        worst = float((diff / (tol + tol * np.abs(want))).max())
+        ok = bool(np.isfinite(got).all()) and worst <= 1.0
+        rec = {"serving": f"{stem} fixture", "dtype": dtype, "layers": meta["n_layers"],
+               "S": meta["seq"], "max_abs_err": float(diff.max()),
+               "max_abs_logit": float(np.abs(want).max()), "worst": worst,
+               "tolerance": tol, "weights_s": weights_s, "ok": ok}
+        stats["serving"].append(rec)
+        say("path", **rec)
+        if not ok:
+            failures.append(f"{stem} {dtype}")
+    del params
+    torch.cuda.empty_cache()
     return failures
 
 
@@ -1128,6 +1535,14 @@ KERNELS = {
     "dequantize": {"source": "src/repro_torch/csrc/quant_pack.cu",
                    "replaces": "src/repro/kernels/quant_pack/kernel.py:69",
                    "main": ("dequantize_bf16", "moe_dispatch")},
+    # llama3.2-1b's prefill of 4 x 8,192 tokens: one call per layer
+    "flash_attention": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention/kernel.py:63",
+                        "main": ("bf16_causal", "llama_prefill")},
+    # mamba2-780m's prefill of 4 x 8,192 tokens (x in bfloat16): one per layer
+    "ssd_scan": {"source": "src/repro_torch/csrc/ssd.cu",
+                 "replaces": "src/repro/kernels/ssd/kernel.py:65",
+                 "main": ("x_bf16", "mamba_prefill")},
 }
 
 
@@ -1147,7 +1562,7 @@ def kernels_line(stats):
             "max_abs_err": max((r["max_abs_err"] for r in forms), default=None),
             "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
             "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
-            "library_ms": None,
+            "library_ms": main.get("library_ms"),
         })
     return {"kernels": out}
 
@@ -1196,7 +1611,8 @@ def main(argv=None) -> int:
     say("build", seconds=time.perf_counter() - t0, build_dir=str(BUILD_DIR),
         ptxas=regs)
 
-    stats = {"forms": [], "scale": [], "switch": [], "comm": [], "launches": {}}
+    stats = {"forms": [], "scale": [], "switch": [], "comm": [], "serving": [],
+             "launches": {}}
     failed = []
     for name, fn in (("kernels", phase_kernels), ("path", phase_path),
                      ("scale", phase_scale), ("profile", phase_profile)):

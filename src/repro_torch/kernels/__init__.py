@@ -5,6 +5,8 @@
   islip/   - batched iSLIP matching (the cycle-level switch's scheduler)
   parser/  - protocol header field extraction (the switch's ingress)
   quant_pack/ - int8 payload quantize/dequantize (the MoE dispatch fabric)
+  flash_attention/ - causal GQA attention, online softmax (the prefill)
+  ssd/     - Mamba-2 SSD chunked scan (the SSM layers' prefill)
 
 Each family keeps the JAX package's triple: ``kernel.py`` binds the CUDA
 kernel (sources in ``repro_torch/csrc/``, built by ``build.py`` at first

@@ -10,7 +10,9 @@ builds every kernel at once (one ``nvcc`` per source, all started together).
 
 ``-fmad=false`` keeps the compiler from contracting a multiply and an add
 into one rounding: the kernels reproduce the JAX reference's float
-operations one by one, and their results are held bitwise against it.
+operations one by one, and their results are held bitwise against it.  The
+attention and SSD kernels, held to a tolerance, ask for their fused
+multiply-adds explicitly (``fmaf``), which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 #: build directory at the checkout root (``src/repro_torch`` -> ``.``)
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("xbar", "netsim", "islip", "parser", "quant_pack")
+SOURCES = ("xbar", "netsim", "islip", "parser", "quant_pack", "flash_attention",
+           "ssd")
 #: dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

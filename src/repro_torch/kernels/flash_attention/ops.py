@@ -1,0 +1,48 @@
+"""Public attention op over [B, H, S, D] with GQA.
+
+Device policy: CUDA tensors launch the hand-written kernel
+(``kernel.flash_attention``), CPU tensors take its plain PyTorch version
+(``ref.blockwise_ref``); there is no fallback from one to the other.
+``attention_reference`` is the port of the JAX package's oracle op (heads
+repeated, exact softmax).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernel
+from .ref import attention_ref, blockwise_ref
+
+__all__ = ["flash_attention", "attention_reference"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, block_q: int = 512,
+                    block_k: int = 1024) -> torch.Tensor:
+    """q [B, Hq, S, D], k/v [B, Hkv, T, D] -> [B, Hq, S, D].  ``block_q`` and
+    ``block_k`` tile the plain version only: the kernel picks its own."""
+    if q.device.type == "cpu":
+        return blockwise_ref(q, k, v, causal=causal, window=window,
+                             block_q=block_q, block_k=block_k)
+    return kernel.flash_attention(_aligned(q), _aligned(k), _aligned(v),
+                                  causal=causal, window=window)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (a view into the
+    middle of a tensor may not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def attention_reference(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hkv != hq:
+        rep = hq // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    out = attention_ref(q.reshape(b * hq, s, d), k.reshape(b * hq, -1, d),
+                        v.reshape(b * hq, -1, d), causal=causal)
+    return out.reshape(b, hq, s, d)

@@ -1,0 +1,50 @@
+"""Public SSD ops: the chunked scan and the one-token decode step.
+
+Device policy for ``ssd_chunked``: CUDA tensors launch the hand-written
+kernel (``kernel.ssd_scan``, which picks its own chunk), CPU tensors take
+the plain version (``ref.ssd_chunked_ref`` at ``chunk``); there is no
+fallback from one to the other.
+
+B and C may come per head ([BH, S, N], as in the reference) or per group of
+heads ([G, S, N], G dividing BH, row g serving the BH/G consecutive heads of
+group g): the model's B and C are shared by a sequence's heads, and the
+reference's H-fold broadcast of them is a memory layout, not part of the
+function.  The kernel reads the grouped form directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernel
+from .ref import ssd_chunked_ref
+
+__all__ = ["ssd_chunked", "ssd_decode_step"]
+
+
+def _per_head(t: torch.Tensor, bh: int) -> torch.Tensor:
+    g = t.shape[0]
+    return t if g == bh else torch.repeat_interleave(t, bh // g, dim=0)
+
+
+def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, return_state: bool = False):
+    """x [BH, S, P], dt [BH, S], a [BH], b/c [BH or G, S, N] -> y [BH, S, P]
+    in x's dtype (and the final state [BH, P, N] float32)."""
+    bh = x.shape[0]
+    if b.shape[0] != c.shape[0] or bh % b.shape[0]:
+        raise ValueError(f"b/c rows {b.shape[0]}, {c.shape[0]} must divide {bh}")
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, a, _per_head(b, bh), _per_head(c, bh),
+                               chunk=chunk, return_state=return_state)
+    f32 = torch.float32
+    return kernel.ssd_scan(x.contiguous(), dt.to(f32).contiguous(),
+                           a.to(f32).contiguous(), b.to(f32).contiguous(),
+                           c.to(f32).contiguous(), return_state=return_state)
+
+
+def ssd_decode_step(state, x_t, dt_t, a, b_t, c_t):
+    """Single-token recurrence for serving.  state [BH,P,N] -> (state, y [BH,P])."""
+    decay = torch.exp(dt_t * a)[:, None, None]
+    state = state * decay + dt_t[:, None, None] * torch.einsum("hp,hn->hpn", x_t, b_t)
+    y = torch.einsum("hpn,hn->hp", state, c_t)
+    return state, y

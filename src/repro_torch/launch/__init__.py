@@ -1,2 +1,2 @@
-"""Launch-layer constants of the port; so far only the analytic fabric
-model's hardware dict (``roofline.TPU_V5E``)."""
+"""Launch layer of the port: the analytic fabric model's hardware dict
+(``roofline.TPU_V5E``) and the token-serving driver (``serve``)."""

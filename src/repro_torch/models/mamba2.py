@@ -1,0 +1,142 @@
+"""Mamba-2 (SSD) block — attention-free sequence mixing.
+
+The port's counterpart of the JAX package's ``models/mamba2.py``.
+Projections are stored unpacked (wz/wx/wb/wc/wdt); B and C are shared by a
+sequence's heads (G = 1).  The sequence mix runs through
+``kernels.ssd.ssd_chunked``: the hand-written kernel on the card, its plain
+version on the CPU.  The kernel reads B and C once per sequence, where the
+reference broadcasts them H-fold in memory (``_heads``).  Decode keeps a
+[B·H, P, N] state and a depthwise-conv tail instead of a KV cache.
+
+As in the reference, the prefill convolution applies tap 0 to the current
+token and the decode step applies tap K-1 to it (ROADMAP, queue 3); the port
+copies both.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd import ssd_chunked, ssd_decode_step
+from .config import ModelConfig, ShardingPlan
+from .layers import dense_init, matmul
+
+__all__ = ["init_mamba", "apply_mamba", "init_mamba_state", "decode_mamba"]
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig,
+               plan: Optional[ShardingPlan] = None) -> Dict[str, torch.Tensor]:
+    del plan
+    d, di, n, h = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    dev, f32 = gen.device, torch.float32
+    return {
+        "wz": dense_init(gen, (d, di)),
+        "wx": dense_init(gen, (d, di)),
+        "wb": dense_init(gen, (d, n)),
+        "wc": dense_init(gen, (d, n)),
+        "wdt": dense_init(gen, (d, h), dtype=f32),
+        "conv_w": torch.randn((di, cfg.ssm_conv), generator=gen, dtype=f32,
+                              device=dev) * 0.1,
+        "a_log": torch.zeros((h,), dtype=f32, device=dev),   # A = -exp(a_log) = -1
+        "dskip": torch.ones((h,), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((h,), dtype=f32, device=dev),
+        "norm_g": torch.ones((di,), dtype=f32, device=dev),
+        "wo": dense_init(gen, (di, d), fan_in=di),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over seq: x [B, S, C], w [C, K] (the
+    reference's unrolled shifts; the sum is float32 once w is)."""
+    k = w.shape[-1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i: i + x.shape[1]] * w[:, k - 1 - i]
+    return out
+
+
+def _heads(x, b, c, dt, cfg: ModelConfig):
+    """x [B, S, H·P] -> [B·H, S, P]; dt [B, S, H] -> [B·H, S].  b/c [B, S, N]
+    stay one row per sequence, which ``ssd_chunked`` serves to all H heads
+    (the reference broadcasts them to [B·H, S, N])."""
+    bsz, s, _ = x.shape
+    h, p = cfg.ssm_heads, cfg.ssm_headdim
+    xh = x.reshape(bsz, s, h, p).transpose(1, 2).reshape(bsz * h, s, p)
+    dth = dt.transpose(1, 2).reshape(bsz * h, s)
+    return xh, b, c, dth
+
+
+def _gated_norm(y, z, params, cfg: ModelConfig, dtype):
+    y = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    yf = y.to(torch.float32)
+    return (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
+            * params["norm_g"]).to(dtype)
+
+
+def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor, *, chunk: int = 128,
+                return_state: bool = False):
+    bsz, s, d = x.shape
+    h, p = cfg.ssm_heads, cfg.ssm_headdim
+    f32 = torch.float32
+    z = matmul(x, params["wz"])
+    xi = matmul(x, params["wx"])
+    xi = F.silu(_causal_conv(xi, params["conv_w"]).to(f32)).to(x.dtype)
+    b = matmul(x, params["wb"])
+    c = matmul(x, params["wc"])
+    dt = F.softplus(matmul(x.to(f32), params["wdt"]) + params["dt_bias"])
+    xh, bg, cg, dth = _heads(xi, b, c, dt, cfg)
+    a = -torch.exp(params["a_log"][None].expand(bsz, h).reshape(-1))
+    ch_len = min(chunk, s) if s % min(chunk, s) == 0 else s
+    out = ssd_chunked(xh, dth, a, bg, cg, chunk=ch_len, return_state=return_state)
+    y, final_state = out if return_state else (out, None)          # [BH, S, P]
+    y = y + xh * params["dskip"][None, :, None, None].expand(bsz, h, s, p).reshape(bsz * h, s, p)
+    y = y.reshape(bsz, h, s, p).transpose(1, 2).reshape(bsz, s, h * p)
+    y = _gated_norm(y, z, params, cfg, x.dtype)
+    out = matmul(y, params["wo"])
+    if return_state:
+        k1 = cfg.ssm_conv - 1
+        conv_tail = xi[:, -k1:] if s >= k1 else F.pad(xi, (0, 0, k1 - s, 0))
+        return out, {"ssm": final_state, "conv": conv_tail}
+    return out
+
+
+# ------------------------------------------------------------------ decode
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None) -> Dict[str, torch.Tensor]:
+    h, p, n, di = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_inner
+    return {
+        "ssm": torch.zeros((batch * h, p, n), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device),
+    }
+
+
+def decode_mamba(params, cfg: ModelConfig, state, x: torch.Tensor):
+    """One-token step.  x [B, 1, d] -> (state, y [B, 1, d])."""
+    bsz = x.shape[0]
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    f32 = torch.float32
+    z = matmul(x, params["wz"])[:, 0]
+    xi = matmul(x, params["wx"])[:, 0]                                # [B, di]
+    window = torch.cat([state["conv"], xi[:, None].to(state["conv"].dtype)], dim=1)
+    xc = torch.einsum("bki,ik->bi", window.to(f32), params["conv_w"])
+    xc = F.silu(xc).to(x.dtype)
+    new_conv = window[:, 1:]
+    b = matmul(x, params["wb"])[:, 0]
+    c = matmul(x, params["wc"])[:, 0]
+    dt = F.softplus(matmul(x.to(f32), params["wdt"])[:, 0] + params["dt_bias"])
+    xh = xc.reshape(bsz * h, p).to(f32)
+    bh = b[:, None].expand(bsz, h, n).reshape(bsz * h, n).to(f32)
+    chh = c[:, None].expand(bsz, h, n).reshape(bsz * h, n).to(f32)
+    dth = dt.reshape(bsz * h)
+    a = -torch.exp(params["a_log"][None].expand(bsz, h).reshape(-1))
+    ssm, yh = ssd_decode_step(state["ssm"], xh, dth, a, bh, chh)
+    yh = yh + xh * params["dskip"][None].expand(bsz, h).reshape(-1)[:, None]
+    y = yh.reshape(bsz, h * p).to(x.dtype)
+    y = _gated_norm(y, z, params, cfg, x.dtype)
+    out = matmul(y, params["wo"])[:, None]
+    return {"ssm": ssm, "conv": new_conv}, out

@@ -163,7 +163,10 @@ def _route_hash(xs, hash_proj, topk, e):
 
 
 def _expert_ffn(xin, w1, wg, w2):
-    """[M, E_loc, c, d] -> [M, E_loc, c, d]: the gated FFN of each expert."""
+    """[M, E_loc, c, d] -> [M, E_loc, c, d]: the gated FFN of each expert
+    (in the promoted dtype of the tokens and the weights, as ``jnp.einsum``)."""
+    dt = torch.promote_types(xin.dtype, w1.dtype)
+    xin, w1, wg, w2 = xin.to(dt), w1.to(dt), wg.to(dt), w2.to(dt)
     h = torch.einsum("mecd,edf->mecf", xin, w1)
     g = torch.einsum("mecd,edf->mecf", xin, wg)
     h = h * torch.nn.functional.silu(g.to(torch.float32)).to(h.dtype)

@@ -1,0 +1,315 @@
+"""Model composition: blocks, the layer loop, forward, prefill, decode step.
+
+The port's counterpart of the JAX package's ``models/transformer.py``.  One
+code path serves all 10 architectures; the block is assembled from the
+config's family:
+
+  dense / vlm / audio  : rmsnorm → GQA attn → rmsnorm → gated MLP
+  moe                  : rmsnorm → GQA attn → rmsnorm → switch-fabric MoE
+  ssm                  : rmsnorm → Mamba-2 SSD mix (attention-free)
+  hybrid (hymba)       : rmsnorm → ½·(attn ‖ SSD) parallel heads → rmsnorm → MLP
+
+Parameters keep the reference's layout — every layer weight stacked on a
+leading L dimension — so that weights carry across one to one; the scan over
+layers is a Python loop over ``params["layers"][...][i]``.  The port runs on
+one device with no autograd, so the reference's sharding constraints and
+activation checkpointing have no counterpart (``plan`` and ``mesh`` name
+axes as in the reference; a mesh axis above 1 raises in the MoE layer).
+Training (``loss_fn``, ``param_specs``) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import attention as attn_mod
+from . import mamba2 as ssm_mod
+from . import moe as moe_mod
+from .config import ModelConfig, ShardingPlan
+from .layers import (apply_mlp, init_embedding, init_mlp, init_norm, init_unembed,
+                     matmul, rms_norm)
+
+__all__ = ["init_params", "forward", "init_decode_state", "decode_state_structs",
+           "prefill", "decode_step", "ModelBundle"]
+
+
+# --------------------------------------------------------------------- init
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, plan) -> Dict[str, Any]:
+    params: Dict[str, Any] = {"ln1": init_norm(cfg, gen.device)}
+    if cfg.has_attention:
+        params["attn"] = attn_mod.init_attention(gen, cfg, plan)
+    if cfg.has_ssm:
+        params["ssm"] = ssm_mod.init_mamba(gen, cfg, plan)
+    if cfg.family == "ssm":
+        return params                            # mamba2: single-mix block, no MLP
+    params["ln2"] = init_norm(cfg, gen.device)
+    if cfg.is_moe:
+        params["moe"] = moe_mod.init_moe(gen, cfg, plan)
+    else:
+        params["mlp"] = init_mlp(gen, cfg, plan)
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                plan: Optional[ShardingPlan] = None) -> Dict[str, Any]:
+    """The model's parameters, drawn from ``gen`` on its device, with the
+    layers stacked on a leading L dimension (no partition specs)."""
+    params: Dict[str, Any] = {}
+    if cfg.frontend == "tokens":
+        params["embed"] = init_embedding(gen, cfg, plan)
+    params["unembed"] = init_unembed(gen, cfg, plan)
+    params["final_norm"] = init_norm(cfg, gen.device)
+    params["layers"] = _stack([_init_block(gen, cfg, plan)
+                               for _ in range(cfg.n_layers)])
+    return params
+
+
+# ------------------------------------------------------------------- forward
+
+def _inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Embedded inputs [B, S, d] and their positions."""
+    if cfg.frontend == "tokens":
+        tok = batch["tokens"]
+        x = params["embed"].to(cfg.activation_dtype)[tok]
+        b, s = tok.shape
+    else:
+        x = batch["embeddings"].to(cfg.activation_dtype)
+        b, s = x.shape[:2]
+    dev = x.device
+    if cfg.mrope:
+        positions = batch.get("positions3")
+        if positions is None:
+            base = torch.arange(s, device=dev)[None].expand(b, s)
+            positions = torch.stack([base, base, base], dim=1)
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, device=dev)[None].expand(b, s)
+    return x, positions
+
+
+def _block_apply(layer_params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+                 x, positions, moe_opts, window: int):
+    h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.family == "ssm":
+        return x + ssm_mod.apply_mamba(layer_params["ssm"], cfg, h), aux
+    if cfg.family == "hybrid":
+        a = attn_mod.apply_attention(layer_params["attn"], cfg, h, positions, window=window)
+        m = ssm_mod.apply_mamba(layer_params["ssm"], cfg, h)
+        x = x + 0.5 * (a + m)                       # parallel heads (Hymba)
+    else:
+        x = x + attn_mod.apply_attention(layer_params["attn"], cfg, h, positions,
+                                         window=window)
+    h2 = rms_norm(x, layer_params["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        y, aux = moe_mod.apply_moe(layer_params["moe"], cfg, plan, mesh, h2, moe_opts)
+        x = x + y
+    else:
+        x = x + apply_mlp(layer_params["mlp"], h2)
+    return x, aux
+
+
+def _unembed(params, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return matmul(x, params["unembed"].to(x.dtype))
+
+
+def forward(
+    params,
+    cfg: ModelConfig,
+    plan: ShardingPlan,
+    mesh,
+    batch: Dict[str, torch.Tensor],
+    *,
+    moe_opts: Optional[moe_mod.MoEOptions] = None,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token/embedding batch -> logits [B, S, V] (+ aux: the MoE layers'
+    ``aux_loss``/``drop_frac``/``expert_load`` averaged over layers)."""
+    x, positions = _inputs(params, cfg, batch)
+    auxs = []
+    for i in range(cfg.n_layers):
+        x, aux = _block_apply(_layer(params["layers"], i), cfg, plan, mesh, x,
+                              positions, moe_opts, window)
+        auxs.append(aux)
+    logits = _unembed(params, cfg, x)
+    if not auxs or not auxs[0]:
+        return logits, {}
+    return logits, {k: torch.stack([a[k] for a in auxs]).float().mean()
+                    for k in auxs[0]}
+
+
+# ------------------------------------------------------------------- prefill
+
+def prefill(
+    params,
+    cfg: ModelConfig,
+    plan: ShardingPlan,
+    mesh,
+    batch: Dict[str, torch.Tensor],
+    *,
+    moe_opts: Optional[moe_mod.MoEOptions] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Serving prefill: consume the prompt, emit (last-token logits [B, V],
+    decode state with per-layer caches stacked on L and ``pos``)."""
+    x, positions = _inputs(params, cfg, batch)
+    s = x.shape[1]
+    window = cfg.sliding_window
+    cache_len = min(window, s) if window else s
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            y, st = ssm_mod.apply_mamba(lp["ssm"], cfg, h, return_state=True)
+            x = x + y
+            caches.append(st)
+            continue
+        if cfg.family == "hybrid":
+            a, ck, cv = attn_mod.apply_attention(lp["attn"], cfg, h, positions,
+                                                 window=window, return_kv=True)
+            m, st = ssm_mod.apply_mamba(lp["ssm"], cfg, h, return_state=True)
+            x = x + 0.5 * (a + m)
+            cache = {"cache_k": ck[:, :, -cache_len:], "cache_v": cv[:, :, -cache_len:], **st}
+        else:
+            a, ck, cv = attn_mod.apply_attention(lp["attn"], cfg, h, positions,
+                                                 return_kv=True)
+            x = x + a
+            cache = {"cache_k": ck[:, :, -cache_len:], "cache_v": cv[:, :, -cache_len:]}
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.is_moe:
+            y, _ = moe_mod.apply_moe(lp["moe"], cfg, plan, mesh, h2, moe_opts)
+            x = x + y
+        else:
+            x = x + apply_mlp(lp["mlp"], h2)
+        caches.append(cache)
+    logits = _unembed(params, cfg, x[:, -1:])
+    state: Dict[str, Any] = _stack(caches)
+    state["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    return logits[:, 0], state
+
+
+# -------------------------------------------------------------------- decode
+
+def decode_state_structs(cfg: ModelConfig, plan: Optional[ShardingPlan], batch: int,
+                         s_max: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Decode-state shapes and dtypes, without allocating (the reference
+    also returns shardings; one device has none)."""
+    del plan
+    structs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {"pos": ((), torch.int32)}
+    if cfg.has_attention:
+        hkv, hd = cfg.n_kv_heads, cfg.hd
+        cache_len = min(cfg.sliding_window or s_max, s_max)
+        shape = (cfg.n_layers, batch, hkv, cache_len, hd)
+        structs["cache_k"] = (shape, cfg.activation_dtype)
+        structs["cache_v"] = (shape, cfg.activation_dtype)
+    if cfg.has_ssm:
+        h, p, n, di = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_inner
+        structs["ssm"] = ((cfg.n_layers, batch * h, p, n), torch.float32)
+        structs["conv"] = ((cfg.n_layers, batch, cfg.ssm_conv - 1, di),
+                           cfg.activation_dtype)
+    return structs
+
+
+def init_decode_state(cfg: ModelConfig, plan: Optional[ShardingPlan], batch: int,
+                      s_max: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zeroed per-layer caches/states (stacked on L) and ``pos`` = 0 on
+    ``device`` (default: the first CUDA device)."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in decode_state_structs(cfg, plan, batch, s_max).items()}
+
+
+def decode_step(
+    params,
+    cfg: ModelConfig,
+    plan: ShardingPlan,
+    mesh,
+    state: Dict[str, Any],
+    tokens_or_embeds: torch.Tensor,           # [B, 1] int or [B, 1, d]
+    *,
+    moe_opts: Optional[moe_mod.MoEOptions] = None,
+) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One serving step: consume one token, emit next-token logits [B, 1, V].
+    ``pos`` stays a device scalar: nothing here waits on the host."""
+    pos = state["pos"]
+    if cfg.frontend == "tokens":
+        x = params["embed"].to(cfg.activation_dtype)[tokens_or_embeds]
+    else:
+        x = tokens_or_embeds.to(cfg.activation_dtype)
+    b = x.shape[0]
+    pq = pos.reshape(1, 1).expand(b, 1)
+    positions_q = torch.stack([pq, pq, pq], dim=1) if cfg.mrope else pq
+    window = cfg.sliding_window
+
+    cache_keys = [k for k in ("cache_k", "cache_v", "ssm", "conv") if k in state]
+    new_caches = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        cache = {k: state[k][i] for k in cache_keys}
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            st, y = ssm_mod.decode_mamba(lp["ssm"], cfg, cache, h)
+            x = x + y
+            new_caches.append(st)
+            continue
+        if cfg.family == "hybrid":
+            a, ck, cv = attn_mod.decode_attention(
+                lp["attn"], cfg, h, cache["cache_k"], cache["cache_v"],
+                pos % cache["cache_k"].shape[2], positions_q, ring=True)
+            st, m = ssm_mod.decode_mamba(lp["ssm"], cfg,
+                                         {"ssm": cache["ssm"], "conv": cache["conv"]}, h)
+            x = x + 0.5 * (a + m)
+            new_cache = {"cache_k": ck, "cache_v": cv, **st}
+        else:
+            a, ck, cv = attn_mod.decode_attention(
+                lp["attn"], cfg, h, cache["cache_k"], cache["cache_v"],
+                pos, positions_q, window=window)
+            x = x + a
+            new_cache = {"cache_k": ck, "cache_v": cv}
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.is_moe:
+            y, _ = moe_mod.apply_moe(lp["moe"], cfg, plan, mesh, h2, moe_opts)
+            x = x + y
+        else:
+            x = x + apply_mlp(lp["mlp"], h2)
+        new_caches.append(new_cache)
+    logits = _unembed(params, cfg, x)
+    new_state = dict(state)
+    new_state.update(_stack(new_caches))
+    new_state["pos"] = pos + 1
+    return new_state, logits
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """Convenience wrapper used by the launcher and examples (the
+    reference's ``loss`` method comes with the training slice)."""
+
+    cfg: ModelConfig
+    plan: ShardingPlan
+    mesh: Any
+
+    def init(self, gen: torch.Generator):
+        return init_params(gen, self.cfg, self.plan)
+
+    def decode(self, params, state, tok, **kw):
+        return decode_step(params, self.cfg, self.plan, self.mesh, state, tok, **kw)

@@ -1,0 +1,278 @@
+"""The port's attention (``repro_torch.kernels.flash_attention`` and
+``repro_torch.models.attention``) against the JAX package's.
+
+Contract, on the CPU with the plain PyTorch versions, on inputs made with
+``np.random.default_rng`` and handed to both packages as NumPy:
+
+- ``blockwise_ref`` (the plain version of the CUDA kernel) against the
+  Pallas kernel ``flash_attention_bhsd`` in interpret mode, the oracle
+  ``attention_ref`` and the XLA twin ``blockwise_attention``, at
+  ``atol = rtol = 3e-5`` in float32 (``tests/test_kernels.py``'s bar):
+  GQA 4/1, 8/2 and 4/4, causal and not, a sliding window, S != T, and
+  lengths that no block divides; bfloat16 within the reference's 0.05;
+- ``rope`` and ``mrope`` at 1e-6;
+- ``apply_attention`` (both implementations) and ``decode_attention`` (the
+  plain cache, a window, the hybrid ring, and the cache write clamped at
+  ``S_max - 1`` as ``dynamic_update_slice`` clamps it) at 1e-5 in float32.
+
+The CUDA kernel runs only on a card: the ``cuda``-marked test skips here
+(``python3 chip_smoke.py`` holds it against the plain version on the card).
+"""
+
+import dataclasses
+
+import jax
+import jax.experimental
+
+# jax 0.9 dropped jax.experimental.enable_x64, which the reference's batched
+# engines import; alias it to the scoped config switch before importing them
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_smoke as ref_smoke  # noqa: E402
+from repro.kernels.flash_attention import kernel as pallas  # noqa: E402
+from repro.kernels.flash_attention import ops as ref_ops  # noqa: E402
+from repro.kernels.flash_attention import ref as ref_ref  # noqa: E402
+from repro.models import attention as RA  # noqa: E402
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.models import attention as PA  # noqa: E402
+
+TOL = dict(atol=3e-5, rtol=3e-5)
+
+
+def _qkv(b, hq, hkv, s, t, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, s, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, t, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, t, d)).astype(np.float32))
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a)).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# the plain version of the kernel against the reference's three forms
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(128, 64), (256, 32), (128, 128)])
+def test_blockwise_ref_vs_pallas_interpret(s, d, causal):
+    q, k, v = _qkv(3, 1, 1, s, s, d, seed=s + d)
+    want = pallas.flash_attention_bhsd(jnp.asarray(q[:, 0]), jnp.asarray(k[:, 0]),
+                                       jnp.asarray(v[:, 0]), causal=causal,
+                                       block_q=64, block_k=64, interpret=True)
+    got = fa.blockwise_ref(_t(q), _t(k), _t(v), causal=causal, block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(got)[:, 0], _np(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,t", [(96, 96), (64, 160)])
+def test_attention_ref_and_blockwise_ref_vs_oracle(s, t, causal):
+    q, k, v = _qkv(2, 4, 4, s, t, 32, seed=s * t)
+    bh = lambda a: a.reshape(8, -1, 32)                          # noqa: E731
+    want = ref_ref.attention_ref(jnp.asarray(bh(q)), jnp.asarray(bh(k)),
+                                 jnp.asarray(bh(v)), causal=causal)
+    got = fa.attention_ref(_t(bh(q)), _t(bh(k)), _t(bh(v)), causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    blk = fa.blockwise_ref(_t(q), _t(k), _t(v), causal=causal, block_q=32, block_k=48)
+    np.testing.assert_allclose(_np(blk).reshape(8, s, 32), _np(want), **TOL)
+    rep = fa.attention_reference(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(_np(rep), _np(ref_ops.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)), **TOL)
+
+
+GQA = [(4, 1), (8, 2), (4, 4)]
+CASES = [dict(s=128, t=128, causal=True, window=0),
+         dict(s=128, t=128, causal=False, window=0),
+         dict(s=128, t=128, causal=True, window=40),
+         dict(s=64, t=192, causal=True, window=0),
+         dict(s=64, t=192, causal=False, window=50)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("hq,hkv", GQA)
+def test_blockwise_vs_reference_blockwise(hq, hkv, case):
+    s, t = case["s"], case["t"]
+    q, k, v = _qkv(2, hq, hkv, s, t, 32, seed=hq * 10 + hkv + s)
+    want = RA.blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=case["causal"], window=case["window"],
+                                  block_q=32, block_k=64)
+    for bq, bk in ((32, 64), (48, 80), (512, 1024)):     # the kernel picks its own tiles
+        got = PA.blockwise_attention(_t(q), _t(k), _t(v), causal=case["causal"],
+                                     window=case["window"], block_q=bq, block_k=bk)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("s", [100, 257])
+def test_blockwise_takes_lengths_no_block_divides(s):
+    q, k, v = _qkv(1, 4, 2, s, s, 32, seed=s)
+    want = RA.plain_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    got = PA.blockwise_attention(_t(q), _t(k), _t(v), causal=True, block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_blockwise_bf16_within_reference_bar():
+    q, k, v = _qkv(1, 4, 4, 128, 128, 64, seed=4)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)            # noqa: E731
+    want = ref_ops.flash_attention(bf(q), bf(k), bf(v), block_q=64, block_k=64)
+    tb = lambda a: _t(_np(bf(a)), torch.bfloat16)                 # noqa: E731
+    got = PA.blockwise_attention(tb(q), tb(k), tb(v), causal=True)
+    assert got.dtype == torch.bfloat16
+    assert float(np.abs(_np(got) - _np(want)).max()) < 0.05
+    # and the XLA twin, in the same dtype (P rounded to bf16 before PV)
+    twin = RA.blockwise_attention(bf(q), bf(k), bf(v), causal=True, block_q=64, block_k=64)
+    assert float(np.abs(_np(got) - _np(twin)).max()) < 0.05
+
+
+# --------------------------------------------------------------------------
+# RoPE / M-RoPE
+# --------------------------------------------------------------------------
+
+def test_rope_matches_reference():
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 4, 48, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 48, 32)).astype(np.float32)
+    pos = rng.integers(0, 4096, (2, 48))
+    for theta in (1e4, 5e5):
+        rq, rk = RA.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos), theta)
+        pq, pk = PA.rope(_t(q), _t(k), torch.from_numpy(pos), theta)
+        np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(_np(pk), _np(rk), atol=1e-6, rtol=1e-6)
+    small = rng.integers(0, 64, (2, 48))
+    rq, _ = RA.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(small), 1e4)
+    pq, _ = PA.rope(_t(q), _t(k), torch.from_numpy(small), 1e4)
+    np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
+
+
+def test_mrope_matches_reference():
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 4, 40, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 40, 32)).astype(np.float32)
+    pos3 = rng.integers(0, 64, (2, 3, 40))
+    rq, rk = RA.mrope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos3), 1e6, (4, 6, 6))
+    pq, pk = PA.mrope(_t(q), _t(k), torch.from_numpy(pos3), 1e6, (4, 6, 6))
+    np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(_np(pk), _np(rk), atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the layer: apply_attention and decode_attention
+# --------------------------------------------------------------------------
+
+def _layer(name, seed=0):
+    """(reference cfg, port cfg, reference params, port params) of one smoke
+    layer in float32 activations, weights from the shared NumPy seed."""
+    rc = dataclasses.replace(ref_smoke(name), dtype="float32")
+    pc = dataclasses.replace(get_smoke(name), dtype="float32")
+    arrays = {k[len("layers.attn."):]: v[0] for k, v in
+              convert.seeded_model_arrays(pc, seed).items() if k.startswith("layers.attn.")}
+    rp = {k: jnp.asarray(v.view(jnp.bfloat16)) for k, v in arrays.items()}
+    pp = {k: v for k, v in convert.model_params(arrays, "cpu").items()}
+    return rc, pc, rp, pp
+
+
+@pytest.mark.parametrize("impl,window", [("plain", 0), ("blockwise", 0),
+                                         ("plain", 24), ("blockwise", 24)])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2-vl-72b"])
+def test_apply_attention_matches_reference(name, impl, window):
+    rc, pc, rp, pp = _layer(name)
+    rng = np.random.default_rng(3)
+    b, s = 2, 96
+    x = rng.standard_normal((b, s, pc.d_model)).astype(np.float32)
+    if pc.mrope:
+        pos = rng.integers(0, s, (b, 3, s))
+    else:
+        pos = np.broadcast_to(np.arange(s)[None], (b, s)).copy()
+    r_out, r_k, r_v = RA.apply_attention(rp, rc, jnp.asarray(x), jnp.asarray(pos),
+                                         impl=impl, window=window, return_kv=True)
+    p_out, p_k, p_v = PA.apply_attention(pp, pc, _t(x), torch.from_numpy(pos),
+                                         impl=impl, window=window, return_kv=True)
+    for got, want in ((p_out, r_out), (p_k, r_k), (p_v, r_v)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["plain", "window", "ring", "clamped"])
+def test_decode_attention_matches_reference(mode):
+    rc, pc, rp, pp = _layer("hymba-1.5b" if mode == "ring" else "llama3.2-1b")
+    rng = np.random.default_rng(11)
+    b, s_max, hkv, hd = 2, 32, pc.n_kv_heads, pc.hd
+    ck = rng.standard_normal((b, hkv, s_max, hd)).astype(np.float32)
+    cv = rng.standard_normal((b, hkv, s_max, hd)).astype(np.float32)
+    r_ck, r_cv, p_ck, p_cv = jnp.asarray(ck), jnp.asarray(cv), _t(ck), _t(cv)
+    kw = {"window": 8} if mode == "window" else {"ring": True} if mode == "ring" else {}
+    steps = {"plain": range(0, 6), "window": range(10, 16), "ring": range(28, 40),
+             "clamped": range(30, 36)}[mode]
+    for t in steps:
+        x = rng.standard_normal((b, 1, pc.d_model)).astype(np.float32)
+        pos_cache = t % s_max if mode == "ring" else t
+        pq = np.full((b, 1), t)
+        r_o, r_ck, r_cv = RA.decode_attention(rp, rc, jnp.asarray(x), r_ck, r_cv,
+                                              jnp.asarray(pos_cache, jnp.int32),
+                                              jnp.asarray(pq), **kw)
+        p_o, p_ck, p_cv = PA.decode_attention(pp, pc, _t(x), p_ck, p_cv,
+                                              torch.tensor(pos_cache, dtype=torch.int32),
+                                              torch.from_numpy(pq), **kw)
+        np.testing.assert_allclose(_np(p_o), _np(r_o), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(p_ck), _np(r_ck), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(p_cv), _np(r_cv), atol=1e-5, rtol=1e-5)
+    if mode == "clamped":
+        # positions 32..35 all landed in the last slot, as in the reference
+        assert not np.array_equal(_np(p_ck)[:, :, -1], ck[:, :, -1])
+        np.testing.assert_array_equal(_np(p_ck)[:, :, :30], ck[:, :, :30])
+
+
+# --------------------------------------------------------------------------
+# device policy, and the kernel on the card
+# --------------------------------------------------------------------------
+
+def test_cpu_takes_the_plain_version_and_kernel_refuses_cpu():
+    q, k, v = _qkv(1, 4, 2, 64, 64, 32, seed=1)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), causal=True, window=9)
+    want = fa.blockwise_ref(_t(q), _t(k), _t(v), causal=True, window=9)
+    assert torch.equal(got, want)
+    n0 = fa_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(_t(q), _t(k), _t(v))
+    assert fa_kernel.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_kernel_vs_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    dev = torch.device("cuda")
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for (s, t, window) in ((256, 256, 0), (200, 200, 64), (100, 300, 0)):
+        q, k, v = (_t(a, dt).to(dev) for a in _qkv(2, 8, 2, s, t, 64, seed=s))
+        n0 = fa_kernel.LAUNCHES
+        got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert fa_kernel.LAUNCHES == n0 + 1
+        if dtype == "f32":
+            want = fa.blockwise_ref(q, k, v, causal=True, window=window)
+            torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+        else:
+            # the plain version in bfloat16 at the kernel's 64-key tiles
+            # rounds P as the kernel does: within an output ulp plus 1e-3
+            want = fa.blockwise_ref(q, k, v, causal=True, window=window, block_k=64)
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2 ** -7)
+            ref32 = fa.blockwise_ref(q.float(), k.float(), v.float(), causal=True,
+                                     window=window)
+            assert float((got.float() - ref32).abs().max()) <= 2e-2

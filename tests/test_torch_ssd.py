@@ -1,0 +1,230 @@
+"""The port's SSD scan (``repro_torch.kernels.ssd``) and Mamba-2 layer
+(``repro_torch.models.mamba2``) against the JAX package's.
+
+Contract, on the CPU with the plain PyTorch versions, on inputs made with
+``np.random.default_rng`` and handed to both packages as NumPy:
+
+- ``ssd_chunked_ref`` (the plain version of the CUDA kernel) against the
+  reference's ``ssd_chunked`` at ``atol = rtol = 1e-5`` in float32 (y and
+  the final state), and against the serial oracle ``ssd_ref`` and the Pallas
+  kernel ``ssd_scan`` in interpret mode at ``2e-3``
+  (``tests/test_kernels.py``'s bar); the port's ``ssd_ref`` against the
+  reference's;
+- the final state against a run of ``ssd_decode_step`` at 1e-3;
+- a length that no chunk divides (one chunk of all of S, as ``apply_mamba``
+  picks), B/C given per group of heads, and a decay large enough that an
+  unmasked ``exp(cum_i - cum_j)`` overflows;
+- ``apply_mamba`` (with its decode state) at 1e-4 of its scale and
+  ``decode_mamba`` at 1e-5 against the reference's, in float32.
+
+The CUDA kernel runs only on a card: the ``cuda``-marked test skips here
+(``python3 chip_smoke.py`` holds it against the plain version on the card).
+"""
+
+import dataclasses
+
+import jax
+import jax.experimental
+
+# jax 0.9 dropped jax.experimental.enable_x64, which the reference's batched
+# engines import; alias it to the scoped config switch before importing them
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_smoke as ref_smoke  # noqa: E402
+from repro.kernels.ssd import kernel as pallas  # noqa: E402
+from repro.kernels.ssd import ops as ref_ops  # noqa: E402
+from repro.kernels.ssd import ref as ref_ref  # noqa: E402
+from repro.models import mamba2 as RM  # noqa: E402
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.models import mamba2 as PM  # noqa: E402
+
+
+def _inputs(bh, s, p, n, seed, dt_scale=0.1, a_scale=0.3):
+    """x, dt = softplus(N) * dt_scale, a = -exp(N * a_scale), B, C."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bh, s, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((bh, s)))) * dt_scale).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(bh) * a_scale)).astype(np.float32)
+    b = rng.standard_normal((bh, s, n)).astype(np.float32)
+    c = rng.standard_normal((bh, s, n)).astype(np.float32)
+    return x, dt, a, b, c
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+SHAPES = [(128, 32, 16, 32), (256, 64, 32, 64), (256, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("s,p,n,chunk", SHAPES)
+def test_chunked_ref_vs_reference_chunked(s, p, n, chunk):
+    ins = _inputs(2, s, p, n, seed=s + n)
+    ry, rst = ref_ops.ssd_chunked(*_j(*ins), chunk=chunk, return_state=True)
+    py, pst = ssd.ssd_chunked_ref(*_t(*ins), chunk=chunk, return_state=True)
+    np.testing.assert_allclose(_np(py), _np(ry), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(pst), _np(rst), atol=1e-5, rtol=1e-5)
+    assert torch.equal(ssd.ssd_chunked(*_t(*ins), chunk=chunk), py)
+
+
+@pytest.mark.parametrize("s,p,n,chunk", SHAPES)
+def test_chunked_ref_vs_serial_oracle_and_pallas(s, p, n, chunk):
+    ins = _inputs(2, s, p, n, seed=s * n)
+    oracle = _np(ref_ops.ssd_reference(*_j(*ins)))
+    got = _np(ssd.ssd_chunked_ref(*_t(*ins), chunk=chunk))
+    np.testing.assert_allclose(got, oracle, atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(_np(ssd.ssd_ref(*_t(*ins))), _np(ref_ref.ssd_ref(*_j(*ins))),
+                               atol=1e-5, rtol=1e-5)
+    tile = pallas.ssd_scan(*_j(*ins), chunk=chunk, interpret=True)
+    np.testing.assert_allclose(got, _np(tile), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_final_state_matches_decode_steps(chunk):
+    bh, s, p, n = 2, 64, 16, 8
+    x, dt, a, b, c = _t(*_inputs(bh, s, p, n, seed=7))
+    _, final = ssd.ssd_chunked(x, dt, a, b, c, chunk=chunk, return_state=True)
+    state = torch.zeros((bh, p, n))
+    for t in range(s):
+        state, _ = ssd.ssd_decode_step(state, x[:, t], dt[:, t], a, b[:, t], c[:, t])
+    np.testing.assert_allclose(_np(final), _np(state), atol=1e-3, rtol=1e-3)
+    rs = jnp.zeros((bh, p, n))
+    xj, dtj, aj, bj, cj = _j(*(v.numpy() for v in (x, dt, a, b, c)))
+    for t in range(3):
+        rs, ry = ref_ops.ssd_decode_step(rs, xj[:, t], dtj[:, t], aj, bj[:, t], cj[:, t])
+    ps, py = torch.zeros((bh, p, n)), None
+    for t in range(3):
+        ps, py = ssd.ssd_decode_step(ps, x[:, t], dt[:, t], a, b[:, t], c[:, t])
+    np.testing.assert_allclose(_np(ps), _np(rs), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(_np(py), _np(ry), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("s", [57, 131])
+def test_non_dividing_length_and_grouped_bc(s):
+    """apply_mamba's rule: a length that min(128, S) does not divide is one
+    chunk of all of S.  B/C per group of heads give the per-head result."""
+    bh, p, n, heads = 4, 32, 16, 2
+    x, dt, a, b, c = _inputs(bh, s, p, n, seed=s)
+    b[1::2], c[1::2] = b[0::2], c[0::2]              # shared by each pair of heads
+    want = _np(ref_ops.ssd_reference(*_j(x, dt, a, b, c)))
+    y, st = ssd.ssd_chunked(*_t(x, dt, a, b[::heads], c[::heads]), chunk=s,
+                            return_state=True)
+    np.testing.assert_allclose(_np(y), want, atol=2e-3, rtol=2e-3)
+    ry, rst = ref_ops.ssd_chunked(*_j(x, dt, a, b, c), chunk=s, return_state=True)
+    np.testing.assert_allclose(_np(y), _np(ry), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(st), _np(rst), atol=1e-5, rtol=1e-5)
+
+
+def test_large_decay_is_masked_before_the_exponential():
+    """a = -1 and dt near softplus(0): one chunk of 128 passes |sum dt a| ~ 88,
+    where exp(cum_i - cum_j) for j > i overflows; the result stays finite."""
+    x, dt, _, b, c = _inputs(2, 256, 32, 16, seed=3, dt_scale=1.0)
+    a = -np.ones(2, np.float32)
+    assert float(dt[:, :128].sum(-1).min()) > 88
+    y, st = ssd.ssd_chunked(*_t(x, dt, a, b, c), chunk=128, return_state=True)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    np.testing.assert_allclose(_np(y), _np(ref_ops.ssd_reference(*_j(x, dt, a, b, c))),
+                               atol=2e-3, rtol=2e-3)
+    # cum reaches ~ -90 inside a chunk: exp(cum_i - cum_j) carries ~|cum|·eps
+    # of relative rounding, summed in another order than XLA's cumsum
+    ry = ref_ops.ssd_chunked(*_j(x, dt, a, b, c), chunk=128)
+    np.testing.assert_allclose(_np(y), _np(ry), atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the Mamba-2 layer
+# --------------------------------------------------------------------------
+
+def _layer(name, seed=0):
+    rc = dataclasses.replace(ref_smoke(name), dtype="float32")
+    pc = dataclasses.replace(get_smoke(name), dtype="float32")
+    arrays = {k[len("layers.ssm."):]: v[0] for k, v in
+              convert.seeded_model_arrays(pc, seed).items() if k.startswith("layers.ssm.")}
+    rp = {k: jnp.asarray(v.view(jnp.bfloat16) if v.dtype == np.uint16 else v)
+          for k, v in arrays.items()}
+    pp = convert.model_params(arrays, "cpu")
+    return rc, pc, rp, pp
+
+
+@pytest.mark.parametrize("s", [64, 200, 3])
+@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b"])
+def test_apply_mamba_matches_reference(name, s):
+    rc, pc, rp, pp = _layer(name)
+    x = np.random.default_rng(s).standard_normal((2, s, pc.d_model)).astype(np.float32)
+    r_out, r_st = RM.apply_mamba(rp, rc, jnp.asarray(x), return_state=True)
+    p_out, p_st = PM.apply_mamba(pp, pc, torch.from_numpy(x), return_state=True)
+    # the layer's float32 products and the chunked scan's cumulative sums
+    # round in another order than XLA's: 1e-4 of the output's scale
+    scale = float(np.abs(_np(r_out)).max())
+    np.testing.assert_allclose(_np(p_out), _np(r_out), atol=1e-4 * scale, rtol=1e-4)
+    for k in ("ssm", "conv"):
+        np.testing.assert_allclose(_np(p_st[k]), _np(r_st[k]), atol=1e-4, rtol=1e-4)
+    assert torch.equal(PM.apply_mamba(pp, pc, torch.from_numpy(x)), p_out)
+
+
+def test_decode_mamba_matches_reference():
+    rc, pc, rp, pp = _layer("mamba2-780m")
+    rng = np.random.default_rng(5)
+    r_st = RM.init_mamba_state(rc, 2, jnp.float32)
+    p_st = PM.init_mamba_state(pc, 2, torch.float32)
+    for k in ("ssm", "conv"):
+        assert tuple(p_st[k].shape) == tuple(r_st[k].shape)
+    for _ in range(6):
+        x = rng.standard_normal((2, 1, pc.d_model)).astype(np.float32)
+        r_st, r_y = RM.decode_mamba(rp, rc, r_st, jnp.asarray(x))
+        p_st, p_y = PM.decode_mamba(pp, pc, p_st, torch.from_numpy(x))
+        np.testing.assert_allclose(_np(p_y), _np(r_y), atol=1e-5, rtol=1e-5)
+        for k in ("ssm", "conv"):
+            np.testing.assert_allclose(_np(p_st[k]), _np(r_st[k]), atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# device policy, and the kernel on the card
+# --------------------------------------------------------------------------
+
+def test_kernel_refuses_cpu_tensors():
+    x, dt, a, b, c = _t(*_inputs(2, 64, 32, 16, seed=1))
+    n0 = ssd_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan(x, dt, a, b, c)
+    assert ssd_kernel.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_kernel_vs_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    dev = torch.device("cuda")
+    for s, chunk in ((256, 128), (200, 200)):
+        x, dt, a, b, c = (t.to(dev) for t in _t(*_inputs(4, s, 64, 128, seed=s)))
+        if dtype == "bf16":
+            x = x.to(torch.bfloat16)
+        n0 = ssd_kernel.LAUNCHES
+        y, st = ssd_kernel.ssd_scan(x, dt, a, b, c, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_kernel.LAUNCHES == n0 + 1
+        wy, wst = ssd.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk, return_state=True)
+        torch.testing.assert_close(y.float(), wy.float(), atol=2e-3 if dtype == "f32" else 2e-2,
+                                   rtol=2e-3 if dtype == "f32" else 2e-2)
+        torch.testing.assert_close(st, wst, atol=2e-3, rtol=2e-3)
