@@ -26,7 +26,9 @@ Phases, one result line each; any failure exits non-zero without the final
            llama3.2-1b's prefill (atol 1e-3, rtol 2**-7 against the plain
            version in bfloat16 at the kernel's tiles, a mask one key off
            outside that bar; within 2e-2 of the plain version in float32),
-           with a sliding window, and PyTorch's SDPA timed beside it; the SSD kernel at mamba2-780m's prefill and a ragged length
+           with a sliding window, and PyTorch's SDPA timed beside the
+           causal ones; bfloat16 D 64 and 128 must take the wgmma path; the
+           SSD kernel at mamba2-780m's prefill and a ragged length
            (atol = rtol = 2e-3; y and the final state); ms per call for
            both, and the bound.
   path     four main paths, each with every kernel's launch counter set to 0
@@ -57,7 +59,8 @@ Phases, one result line each; any failure exits non-zero without the final
            init: llama3.2-1b (16 layers) and mamba2-780m (48 layers)
            prefill of 4 x 8,192 tokens, twice each (the reference's
            prefill_32k cut from 32 x 32,768), with flash_attention launched
-           16 times and ssd_scan 48 times per prefill (wall, tokens/s, the
+           16 times, all on its wgmma path, and ssd_scan 48 times per
+           prefill (wall, tokens/s, the
            kernels' share from CUDA events around each launch, peak
            memory); ServeEngine on llama3.2-1b serving 8 requests (4 slots,
            max_new 16, s_max 256); and both models' prefill (2 layers, 1 x
@@ -547,11 +550,14 @@ FLASH_FORMS = (("f32_causal", "gqa_small", 2, 8, 2, 256, 64, 0, "f32"),
 
 
 #: bfloat16 bar of the attention kernel against its plain version run in
-#: bfloat16 at the kernel's 64-key tiles (the same P rounding): outputs agree
+#: bfloat16 at the kernel's key tiles (the same P rounding): outputs agree
 #: to within an output ulp (rtol 2**-7) plus FLASH_BF16_ATOL, 17x under the
 #: typical |o| of a late row at S 8,192 (~0.017)
 FLASH_BF16_ATOL = 1e-3
-FLASH_TILE = 64
+#: keys per tile of the bfloat16 wgmma path (kernels/flash_attention/kernel.py
+#: KEY_TILE; tests/test_torch_attention.py holds the two equal); the FMA
+#: path's tile is the wrapper's plan()
+FLASH_TILE = 128
 
 
 def kernels_flash(dev, stats):
@@ -561,31 +567,42 @@ def kernels_flash(dev, stats):
     FLASH_BF16_ATOL, rtol = 2**-7, and within 2e-2 of it run in float32.
     Each bfloat16 form also shows that its bar sees a mask one key off: the
     plain version with the causal edge (and window) moved by one key falls
-    outside it on the rows of the sequence's second half.  SDPA is timed at
-    the prefill shape."""
+    outside it on the rows of the sequence's second half.  bfloat16 D 64 and
+    128 must take the wgmma path (its launch counter), with the shared
+    memory the wrapper's plan() states.  SDPA is timed on every causal form
+    without a window."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import blockwise_ref
 
+    assert fk.KEY_TILE == FLASH_TILE, (fk.KEY_TILE, FLASH_TILE)
     ok = True
     for form, shape, b, hq, hkv, s, d, window, dt in FLASH_FORMS:
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
         q, k, v = _attn_inputs(b, hq, hkv, s, d, dev, dtype, seed=s + hq)
         kern = lambda: fk.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
         plain = lambda: blockwise_ref(q, k, v, causal=True, window=window)     # noqa: E731
-        n0 = fk.LAUNCHES
+        plan = fk.plan(dtype, d, s)
+        n0, w0 = fk.LAUNCHES, fk.LAUNCHES_WGMMA
         got = kern()
         torch.cuda.synchronize()
         assert fk.LAUNCHES == n0 + 1, "flash_attention did not launch the kernel"
+        wgmma = dt == "bf16" and d in (64, 128)
+        assert plan["path"] == ("wgmma" if wgmma else "fma"), (form, plan)
+        assert fk.LAUNCHES_WGMMA == w0 + wgmma, f"{form} did not take the wgmma path"
+        if wgmma:
+            assert fk.wgmma_smem(d) == plan["smem"], (form, fk.wgmma_smem(d), plan)
         rec = {"kernel": "flash_attention", "form": form, "shape": shape, "B": b,
-               "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window}
+               "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "path": plan["path"], "key_tile": plan["key_tile"]}
         if dt == "f32":
             want = plain()
             err = float((got - want).abs().max())
             good = bool(torch.allclose(got, want, atol=3e-5, rtol=3e-5))
         else:
-            want = blockwise_ref(q, k, v, causal=True, window=window, block_k=FLASH_TILE)
+            want = blockwise_ref(q, k, v, causal=True, window=window,
+                                 block_k=plan["key_tile"])
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             # the largest share of the bar taken; allclose passes at <= 1
@@ -601,7 +618,7 @@ def kernels_flash(dev, stats):
             # the bar against a mask one key off, on rows S/2.. (row r sees
             # keys r - window .. r - 1 instead of r - window + 1 .. r)
             off = blockwise_ref(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1], causal=True,
-                                window=window, block_k=FLASH_TILE)[:, :, s // 2:]
+                                window=window, block_k=plan["key_tile"])[:, :, s // 2:]
             late = got[:, :, 1 + s // 2:].float()
             rec["one_key_off_caught"] = not bool(torch.allclose(
                 late, off.float(), atol=FLASH_BF16_ATOL, rtol=2 ** -7))
@@ -614,7 +631,7 @@ def kernels_flash(dev, stats):
                     "ms": cuda_ms(kern, reps=5), "plain_ms": wall_ms(plain),
                     "bound_ms": bound, "bound_by": by, "library_ms": None})
         rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
-        if shape == "llama_prefill":
+        if dt == "bf16" and not window:
             rec["library_ms"] = cuda_ms(lambda: _sdpa(F, q, k, v), reps=5)
         stats["forms"].append(rec)
         say("kernels", **rec)
@@ -729,7 +746,9 @@ def _counters():
             "parse_headers": (pk, "LAUNCHES"),
             "quantize": (qk, "QUANTIZE_LAUNCHES"),
             "dequantize": (qk, "DEQUANTIZE_LAUNCHES"),
-            "flash_attention": (fk, "LAUNCHES"), "ssd_scan": (sk, "LAUNCHES")}
+            "flash_attention": (fk, "LAUNCHES"),
+            "flash_attention_wgmma": (fk, "LAUNCHES_WGMMA"),
+            "ssd_scan": (sk, "LAUNCHES")}
 
 
 def _reset_counters():
@@ -1009,7 +1028,9 @@ def path_serving(dev, stats):
         b, s = PREFILL_BS
         for arch, layers in SERVE_PREFILL.items():
             cfg = get_config(arch)
-            kernel = "flash_attention" if cfg.has_attention else "ssd_scan"
+            # llama's bf16 D 64 attention takes the wgmma path every layer
+            want_launches = ({"flash_attention": layers, "flash_attention_wgmma": layers}
+                             if cfg.has_attention else {"ssd_scan": layers})
             t0 = time.perf_counter()
             params = T.init_params(torch.Generator(dev).manual_seed(0), cfg, PLAN)
             torch.cuda.synchronize()
@@ -1030,7 +1051,7 @@ def path_serving(dev, stats):
                 ok = (tuple(logits.shape) == (b, cfg.vocab)
                       and bool(torch.isfinite(logits.float()).all())
                       and int(state["pos"]) == s
-                      and launches == {kernel: layers})
+                      and launches == want_launches)
                 rec = {"serving": f"{arch} prefill", "run": run, "layers": layers,
                        "B": b, "S": s, "wall_s": wall, "tokens_per_s": b * s / wall,
                        "launches": launches, "kernel_ms": kms,
@@ -1052,7 +1073,8 @@ def path_serving(dev, stats):
         undo()
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     launches = _read_counters()
-    stats["launches"].update({k: launches[k] for k in ("flash_attention", "ssd_scan")})
+    stats["launches"].update({k: launches[k] for k in ("flash_attention",
+                                                       "flash_attention_wgmma", "ssd_scan")})
     say("path", path="serving", launches=launches,
         seconds=time.perf_counter() - t_path)
     if not (launches["flash_attention"] > 0 and launches["ssd_scan"] > 0):

@@ -24,22 +24,60 @@
 //
 // What bounds it: operations.  At llama3.2-1b's prefill (B 4, Hq 32, S 8192,
 // D 64) the causal work is ~1.1 TFLOP against ~0.34 GB of q/k/v/o.  Two
-// paths, both one block per 64-query tile, issued heaviest (longest causal
-// row) first:
-//   - bf16 with D 64 or 128 runs on the tensor cores with mma.sync (bf16 in,
-//     float32 accumulate; flash_mma below), the prefill's path, with K/V
-//     tiles double-buffered through cp.async;
-//   - float32, and D 32, run on the float32 FMA pipes (flash_fwd): q/k/v
-//     tiles staged in shared memory as float32, each of 256 threads owning a
-//     4x4 patch of the score tile and a 4x(D/16) patch of the output, the row
-//     max and sum reduced across the 16 lanes that share a row.  float32
-//     products on the tensor cores (TF32) would not keep float32's digits.
-// Neither uses wgmma or TMA, nor splits the softmax from the products across
-// warps: that is later work.
+// paths, both issued heaviest (longest causal row) first:
+//   - bf16 with D 64 or 128 (the prefill's path) runs on wgmma with TMA
+//     loads and a warp-specialised mbarrier ring (flash_wgmma, namespace wg
+//     below): 192 (D 64) or 128 (D 128) query rows per block, 128-key
+//     tiles;
+//   - float32, and D 32, run on the float32 FMA pipes (flash_fwd), one block
+//     per 64-query tile: q/k/v tiles staged in shared memory as float32, each
+//     of 256 threads owning a 4x4 patch of the score tile and a 4x(D/16)
+//     patch of the output, the row max and sum reduced across the 16 lanes
+//     that share a row.  float32 products on the tensor cores (TF32) would
+//     not keep float32's digits.
+//
+// The wgmma path's softmax works in base 2: with c = scale * log2(e) held in
+// float32, p = 2^(x c - m c) is one explicit fmaf and one MUFU.EX2 per score
+// (-fmad=false leaves explicit fmaf alone), m the running max of the raw
+// scores.  The masks are applied only on tiles that cross the padding, the
+// causal diagonal or the window's edge; full tiles take no compare.  While a
+// row has seen only masked keys (m still -1e30) its p is 1 for each masked
+// key, exp(-1e30 - -1e30), as the reference's is; 2^(x c - m c) would leave
+// the rounding error of m c (~1e22) in the exponent there.
+//
+// Where the design met trouble:
+//   - TMA from a ctypes library: cuTensorMapEncodeTiled is a driver call and
+//     the build links no libcuda; the runtime's cudaGetDriverEntryPoint hands
+//     it out.  The maps go to the kernel as __grid_constant__ parameters.
+//   - The maps are 3-D over [B*H, S or T, D]: a ragged last tile reads zeros
+//     inside its own head, where a 2-D map over [B*H*T, D] would read the
+//     next head's rows.
+//   - SWIZZLE_128B limits a box's inner extent to 128 bytes (64 bf16): a
+//     D 128 tile is two 64-column chunks, and the k-steps of Q.K^T walk
+//     across both (+32 bytes per k-step inside a chunk, the chunk size
+//     between them); P.V's B operand spans both through the descriptor's
+//     leading byte offset.
+//   - The shared-memory descriptor must say what TMA wrote (128-byte
+//     swizzle, 1,024 bytes between 8-row groups, tiles 1,024-aligned): a
+//     mismatch gives wrong numbers, not a fault, and the bf16 bar in
+//     chip_smoke.py is what catches it.
+//   - wgmma's accumulator holds a row's scores in the 4 lanes of a quad, in
+//     registers 4i + {0,1} (row g) and 4i + {2,3} (row g + 8) of each
+//     8-column block i; two blocks make one k-step's A fragment of P.
+//   - The compiler does not know that wgmma writes its registers late:
+//     every read of an accumulator is fenced after wgmma.wait_group.
+//   - Registers: a mask path that worked out each element's absolute
+//     column spilled ~1 KB a thread at 128-key tiles; comparing the tile's
+//     column offsets with per-row limits does not.  S (64 floats), P (32
+//     words) and O (32 or 64 floats) live together only if tile j + 1's S
+//     is issued before tile j's P.V is done, so the loop does not: with
+//     three consumer warpgroups a consumer has 160 registers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -214,39 +252,167 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, float32 accumulate).
-// One 128-thread block per 64-query tile, each warp owning 16 query rows
-// (FlashAttention-2's split): the warp keeps its Q fragments in registers,
-// computes its 16 x 64 score tile with 32 mma per key tile, runs the online
-// softmax on the accumulator fragments (a row's 16 values live in the 4
-// lanes of a quad), and feeds P back as A fragments (rounded to bf16, as the
-// reference rounds p) to the PV product without a trip through shared
-// memory.  K and V tiles are staged in shared memory by cp.async, double
-// buffered (the next tile loads while this one is used), and read into
-// fragments with ldmatrix (.trans for V).
+// bf16 with D 64 or 128 on Hopper's warpgroup tensor cores (flash_wgmma).
+//
+// A block holds NWG consumer warpgroups of 64 query rows each and one
+// producer warpgroup.  One thread of the producer loads Q once and then the
+// K/V tiles of the block's key range with TMA (cp.async.bulk.tensor, 3-D maps
+// over [B*H, rows, D], 128-byte swizzle) into a ring of NS stages; each stage
+// has a full barrier (TMA's transaction count) and an empty barrier (one
+// arrival from each consumer warp once its products have read the stage).
+// The key loop holds no __syncthreads.  setmaxnreg gives the producer's
+// registers to the consumers.  Per key tile a consumer warpgroup runs
+//   S = Q.K^T   wgmma m64nBKk16, Q and K from shared memory (K-major)
+//   online softmax on S's accumulator fragments (a row's values live in the
+//     4 lanes of a quad, as with mma.sync, in other registers)
+//   O += P.V    wgmma m64nDk16, P from registers as bf16 (the reference's
+//     p.astype(q.dtype)), V from shared memory with the transpose bit set,
+//     so V is never transposed in memory
+// and the consumer warpgroups issue their products in turn (named
+// barriers), so that one's softmax runs while the others' products take
+// the tensor cores.  A consumer writes its rows of O from registers at the
+// end.
+//
+// What holds it back (PERF.md, llama3.2-1b's prefill, 2.7 ms): without the
+// products it takes 2.20 ms, without the softmax 1.44, without both 0.74
+// and without the loads too 0.56.  The softmax (its MUFU.EX2 alone needs
+// ~1.2 ms at the card's 16 a clock an SM) and the per-tile bookkeeping
+// beneath it are most of the time.
 // ---------------------------------------------------------------------------
 
-constexpr int MQ = 64;          // query rows per block (4 warps x 16)
-constexpr int MK = 64;          // keys per tile
-constexpr int MT = 128;
+namespace wg {
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+constexpr int ROWS = 64;        // query rows per consumer warpgroup
+constexpr int CH = 64;          // bf16 columns per 128-byte swizzled chunk
+constexpr int CHUNK_ROW = 128;  // bytes of one row of a chunk
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D_, int NS_, int NWG_>
+struct Cfg {
+  static constexpr int D = D_, BK = 128, NWG = NWG_, NS = NS_;     // see below
+  static constexpr int NCH = D / CH;                         // chunks per row
+  static constexpr int BQ = ROWS * NWG;                      // query rows per block
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int Q_CHUNK = ROWS * CHUNK_ROW;           // 64 rows of one chunk
+  static constexpr int Q_BYTES = NWG * NCH * Q_CHUNK;
+  static constexpr int KV_CHUNK = BK * CHUNK_ROW;            // BK rows of one chunk
+  static constexpr int KV_BYTES = NCH * KV_CHUNK;            // a K or a V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  // 1,024 bytes of slack to align the tiles for the swizzle, then Q, the
+  // ring, and 2 * NS + 1 mbarriers
+  static constexpr int SMEM = 1024 + Q_BYTES + NS * STAGE + 8 * (2 * NS + 1);
+  // registers: the producer keeps 24 of the launch's share, the consumers
+  // take the rest (the SM's 65,536 registers in all)
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
+  static_assert(128 * (PRODUCER_REGS + NWG * CONSUMER_REGS) <= 65536, "registers");
+};
+
+// 128-key tiles; D 64 with 3 consumer warpgroups (192 query rows) and a
+// 3-stage ring (121 KiB), D 128 with 2 (128 rows) and 2 stages (161 KiB).
+// Both fit MAX_SMEM_BYTES (232,448).  Chosen by measurement at
+// llama3.2-1b's prefill (PERF.md): 64- and 96-key tiles were slower, and
+// 4 consumer warpgroups cannot get their registers (setmaxnreg.inc waits
+// for registers the producer does not free).
+using Cfg64 = Cfg<64, 3, 3>;
+using Cfg128 = Cfg<128, 2, 2>;
+static_assert(Cfg64::SMEM <= 232448 && Cfg128::SMEM <= 232448, "shared memory");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try(bar, parity)) {
+  }
+}
+
+// one box of a 3-D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// float registers stay put across the asynchronous product (the compiler
+// must not move them while wgmma reads or writes them)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor of a tile stored in 128-byte-swizzled
+// chunks (what TMA's SWIZZLE_128B writes): start address >> 4 in bits 0-13,
+// leading byte offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, the
+// 128-byte swizzle (1) in bits 62-63.  The stride byte offset is 1,024: eight
+// 128-byte rows.  K-major operands (Q, K) ignore the leading offset (it is
+// set to 16 bytes); the MN-major V takes the distance between its 64-column
+// chunks there.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead_bytes) {
+  return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(lead_bytes >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {    // 2^x (MUFU.EX2; 2^-inf = 0)
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // two floats rounded to bf16 (nearest even), `lo` in the low half
 __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
   return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
          (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_h(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -259,219 +425,409 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(FULL, x, 2);
 }
 
-template <int D>
-constexpr size_t mma_smem_bytes() {       // Q, and K and V double-buffered
-  return sizeof(__nv_bfloat16) * size_t(MQ + 4 * MK) * (D + 8);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// rows [0, rows) of a row-major [*, D] bf16 tile into shared memory (row
-// stride DP) with 16-byte cp.async copies; rows at or past `valid` are
-// zero-filled (a copy of 0 source bytes)
-template <int D, int DP>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      int rows, int valid, int tid) {
-  constexpr int V = D / 8;                            // 16-byte vectors per row
-  for (int i = tid; i < rows * V; i += MT) {
-    const int r = i / V, c = i - r * V;
-    const bool in = r < valid;
-    const __nv_bfloat16* g = src + (in ? (size_t)r * D + c * 8 : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst + r * DP + c * 8)), "l"(g), "r"(in ? 16 : 0));
+// the key tiles [lo, hi] that rows row_lo..row_hi (absolute, offset T - S
+// included) must visit; where some row sees no key (row_lo < 0 under the
+// causal mask) every tile is visited, so such rows average every value
+__device__ __forceinline__ void tile_range(int row_lo, int row_hi, int t, int bk,
+                                           int causal, int window, int& lo, int& hi) {
+  lo = 0;
+  hi = (t + bk - 1) / bk - 1;
+  if (row_lo >= 0) {
+    if (causal) hi = min(hi, row_hi / bk);
+    if (window > 0 && row_lo - window + 1 > 0) lo = (row_lo - window + 1) / bk;
   }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// d += A[64 x 16] . B[16 x N], N = 2 x the floats of d: A from registers
+// (bf16 pairs), B from shared memory MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__global__ void __launch_bounds__(MT)
-flash_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int hq,
-          int hkv, int s, int t, float scale, int causal, int window) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DP = D + 8;                           // padded row, in elements
-  constexpr int KD = D / 16, NT = MK / 8, DT = D / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [MQ][DP]
-  __nv_bfloat16* kbuf = qs + MQ * DP;                            // 2 x [MK][DP]
-  __nv_bfloat16* vbuf = kbuf + 2 * MK * DP;                      // 2 x [MK][DP]
+// d (+)= A[64 x 16] . B[16 x 128]: A and B from shared memory, both
+// K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q.K^T for one key tile: D / 16 k-steps, +32 bytes each inside a
+// 64-column chunk, a chunk's size between chunks
+template <class C>
+__device__ __forceinline__ void issue_scores(float (&sc)[C::BK / 2], uint64_t dq,
+                                             uint32_t sk) {
+  const uint64_t dk = desc(sk, 16);
+#pragma unroll
+  for (int kk = 0; kk < C::D / 16; ++kk)
+    wgmma_ss(sc, dq + (kk / 4) * (C::Q_CHUNK >> 4) + (kk % 4) * 2,
+             dk + (kk / 4) * (C::KV_CHUNK >> 4) + (kk % 4) * 2, kk > 0);
+}
+
+// O += P.V for one key tile: BK / 16 k-steps of 16 keys (2 x 1,024 bytes)
+template <class C>
+__device__ __forceinline__ void issue_pv(float (&acc)[C::D / 2],
+                                         const uint32_t (&pa)[C::BK / 16][4], uint32_t sv) {
+  const uint64_t dv = desc(sv, C::KV_CHUNK);
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+    wgmma_rs(acc, pa[kk], dv + kk * (2048 >> 4));
+}
+
+// the online softmax of one tile, in place: raw scores in, p out; m and l
+// advance, alpha[h] rescales row h's accumulator
+template <class C>
+__device__ __forceinline__ void softmax(float (&sc)[C::BK / 2], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], const int (&row)[2], int c0,
+                                        int tq, int t, float c, int causal, int window,
+                                        bool mask) {
+  constexpr int NB = C::BK / 8;                    // 8-column blocks of the tile
+  if (mask) {
+    // column 8 i + e of this thread's pairs, against limits relative to its
+    // first column
+    const int base = c0 + 2 * tq, pad = t - base;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int hi = causal ? row[h] - base : INT_MAX;            // last key seen
+      const int lo = window > 0 ? row[h] - window + 1 - base : INT_MIN;  // first
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i + e;
+          float& x = sc[4 * i + 2 * h + e];
+          if (col >= pad)
+            x = -INFINITY;                         // padding: p = 0 exactly
+          else if (col > hi || col < lo)
+            x = NEG;
+        }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * h], sc[4 * i + 2 * h + 1]));
+    const float m_new = fmaxf(m[h], quad_max(mx));
+    float ps = 0.f;
+    alpha[h] = ex2((m[h] - m_new) * c);
+    // p = exp(x * scale - m * scale) as 2^(x * c - m * c), c = scale * log2 e
+    const float mc = m_new * c;
+    if (m_new == NEG) {                            // no key seen yet: exp(NEG - NEG) = 1
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * i + 2 * h + e];
+          x = x == -INFINITY ? 0.f : 1.f;
+          ps += x;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * i + 2 * h + e];
+          x = ex2(fmaf(x, c, -mc));
+          ps += x;
+        }
+    }
+    m[h] = m_new;
+    l[h] = l[h] * alpha[h] + ps;                   // this thread's share of the row
+  }
+}
+
+// P rounded to bf16 as the A fragments of P.V: 8-column blocks 2 kk and
+// 2 kk + 1 of the score accumulator make k-step kk
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_f(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_f(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_f(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_f(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+template <int ON>
+__device__ __forceinline__ void rescale(float (&acc)[ON], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < ON / 4; ++i) {
+    acc[4 * i + 0] *= alpha[0];
+    acc[4 * i + 1] *= alpha[0];
+    acc[4 * i + 2] *= alpha[1];
+    acc[4 * i + 3] *= alpha[1];
+  }
+}
+
+// the consumer warpgroup `w` of a block: rows q0 + 64 w .. of head bh.
+// Every consumer warpgroup takes every tile of the block's key range
+// [jlo, jhi], so that they take turns at the tensor cores (below); a tile
+// that the mask removes wholly for this warpgroup's rows changes nothing
+// (p = 0 once a key was seen; before that, whatever it adds is reset by
+// alpha = 0 at the first key seen).  Per tile: S = Q.K^T, the softmax, then
+// O += P.V, each product waited for before the next step, so that S and P
+// are never live together (a pipelined loop that issued tile j + 1's S with
+// tile j's P.V spilled at D 128 and could not run three warpgroups).
+template <class C>
+__device__ __forceinline__ void consume(uint32_t sq, uint32_t skv, uint32_t bars,
+                                        __nv_bfloat16* __restrict__ o, int bh, int q0,
+                                        int w, int s, int t, float c, int causal,
+                                        int window, int jlo, int jhi) {
+  constexpr int D = C::D, BK = C::BK, NS = C::NS, NWG = C::NWG;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int off = t - s;
+  const int r0 = q0 + w * ROWS;                    // first query row of this warpgroup
+  const int row_lo = r0 + off, row_hi = min(r0 + ROWS, s) - 1 + off;
+  const int row[2] = {r0 + warp * 16 + g + off, r0 + warp * 16 + g + 8 + off};
+  auto full = [&](int n) { return bars + 8 * (n % NS); };
+  auto empty = [&](int n) { return bars + 8 * (NS + n % NS); };
+  auto stage = [&](int n) { return skv + (n % NS) * C::STAGE; };
+  auto parity = [&](int n) { return uint32_t((n / NS) & 1); };
+  // a warp is done with a stage once its own wgmma.wait_group has passed;
+  // one lane arrives for it
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // The warpgroups issue their products in turn (named barrier 1 + w: this
+  // warpgroup waits on it, the one before arrives), so that one's softmax
+  // runs while the others' products take the tensor cores.  Each issues the
+  // same number of times, 2 (jhi - jlo + 1); the last one skips its last
+  // hand-over, which nobody would wait for.
+  auto turn = [&]() { named_sync(1 + w); };
+  auto pass = [&](bool final) {
+    if (!(final && w == NWG - 1)) named_arrive(1 + (w + 1) % NWG);
+  };
+  // masks only where the tile crosses the padding, the diagonal or the
+  // window's edge
+  auto mask = [&](int j) {
+    const int c0 = j * BK;
+    return c0 + BK > t || (causal && c0 + BK - 1 > row_lo) ||
+           (window > 0 && row_hi - c0 >= window);
+  };
+
+  float acc[D / 2], sc[BK / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (w == NWG - 1) named_arrive(1);               // warpgroup 0 goes first
+  mbar_wait(bars + 16 * NS, 0);                    // Q
+  const uint64_t dq = desc(sq + w * C::NCH * C::Q_CHUNK, 16);
+  int n = 0;                                       // stages taken: tile jlo + n
+  for (int j = jlo; j <= jhi; ++j, ++n) {
+    mbar_wait(full(n), parity(n));
+    turn();
+    wgmma_fence();
+    issue_scores<C>(sc, dq, stage(n));
+    wgmma_commit();
+    pass(false);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax<C>(sc, m, l, alpha, row, j * BK, tq, t, c, causal, window, mask(j));
+    rescale(acc, alpha);
+    pack_p<BK>(pa, sc);
+    fence_regs(acc);
+    turn();
+    wgmma_fence();
+    issue_pv<C>(acc, pa, stage(n) + C::KV_BYTES);
+    wgmma_commit();
+    pass(j == jhi);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty(n));
+  }
+  if (r0 >= s) return;                             // rows past S: nothing to write
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + warp * 16 + g + 8 * h;
+    const float den = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (r >= s) continue;
+    __nv_bfloat16* op = o + ((size_t)bh * s + r) * D + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(op + 8 * i) =
+          pack_f(acc[4 * i + 2 * h] / den, acc[4 * i + 2 * h + 1] / den);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int hq,
+            int hkv, int s, int t, float c, int causal, int window) {
+  constexpr int NS = C::NS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;   // 1,024-aligned tiles
+  const uint32_t skv = sq + C::Q_BYTES;
+  const uint32_t bars = skv + NS * C::STAGE;        // full[NS], empty[NS], Q
   const int bh = blockIdx.y;
   const int b = bh / hq, h = bh - b * hq;
   const int kvh = b * hkv + h / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MQ;   // heaviest tiles first
-  const __nv_bfloat16* kp = k + (size_t)kvh * t * D;
-  const __nv_bfloat16* vp = v + (size_t)kvh * t * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;       // heaviest tiles first
+  int jlo, jhi;                                     // the block's key tiles
+  tile_range(q0 + t - s, min(q0 + C::BQ, s) - 1 + t - s, t, C::BK, causal, window, jlo,
+             jhi);
 
-  stage<D, DP>(qs, q + ((size_t)bh * s + q0) * D, MQ, s - q0, tid);
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (NS + i), 4 * C::NWG);    // one arrival per consumer warp
+    }
+    mbar_init(bars + 16 * NS, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const __nv_bfloat16* qr = qs + (r0 + g) * DP + kk * 16 + 2 * tq;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 * DP);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(qr + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(qr + 8 * DP + 8);
-  }
 
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  const int off = t - s;
-  const int row_lo = q0 + off;
-  const int row_hi = min(q0 + MQ, s) - 1 + off;
-  int j_lo = 0, j_hi = (t + MK - 1) / MK - 1;
-  if (row_lo >= 0) {
-    if (causal) j_hi = min(j_hi, row_hi / MK);
-    if (window > 0 && row_lo - window + 1 > 0) j_lo = (row_lo - window + 1) / MK;
-  }
-
-  // K/V tiles double-buffered: tile j + 1 is in flight while j is used
-  const int li = lane >> 3, lr = lane & 7;            // ldmatrix: matrix, row
-  if (j_lo <= j_hi) {
-    stage<D, DP>(kbuf, kp + (size_t)j_lo * MK * D, MK, t - j_lo * MK, tid);
-    stage<D, DP>(vbuf, vp + (size_t)j_lo * MK * D, MK, t - j_lo * MK, tid);
-  }
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int c0 = j * MK;
-    const int cur = (j - j_lo) & 1;
-    const __nv_bfloat16* ks = kbuf + cur * MK * DP;
-    const __nv_bfloat16* vs = vbuf + cur * MK * DP;
-    if (j < j_hi) {
-      const int c1 = c0 + MK;
-      stage<D, DP>(kbuf + (cur ^ 1) * MK * DP, kp + (size_t)c1 * D, MK, t - c1, tid);
-      stage<D, DP>(vbuf + (cur ^ 1) * MK * DP, vp + (size_t)c1 * D, MK, t - c1, tid);
-      cp_async_wait<2>();                             // this tile's K and V landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float sc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; kk += 2) {            // K^T fragments of k-steps kk, kk+1
-        uint32_t kb[4];
-        ldsm_x4(kb, ks + (n * 8 + lr) * DP + kk * 16 + li * 8);
-        mma_bf16(sc[n], qa[kk], kb[0], kb[1]);
-        mma_bf16(sc[n], qa[kk + 1], kb[2], kb[3]);
+  const int w = threadIdx.x / 128;
+  if (w == 0) {                                     // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(C::PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    const int qrows = (min(q0 + C::BQ, s) - q0 + ROWS - 1) / ROWS;   // warpgroups with rows
+    const uint32_t qbar = bars + 16 * NS;
+    mbar_expect_tx(qbar, qrows * C::NCH * C::Q_CHUNK);
+    for (int r = 0; r < qrows; ++r)
+      for (int ch = 0; ch < C::NCH; ++ch)
+        tma_load(sq + (r * C::NCH + ch) * C::Q_CHUNK, &tq, ch * CH, q0 + r * ROWS, bh,
+                 qbar);
+    for (int j = jlo, n = 0; j <= jhi; ++j, ++n) {
+      const int st = n % NS;
+      mbar_wait(bars + 8 * (NS + st), ((n / NS) & 1) ^ 1);    // the stage is free
+      const uint32_t full = bars + 8 * st, sk = skv + st * C::STAGE;
+      mbar_expect_tx(full, C::STAGE);
+      for (int ch = 0; ch < C::NCH; ++ch) {
+        tma_load(sk + ch * C::KV_CHUNK, &tk, ch * CH, j * C::BK, kvh, full);
+        tma_load(sk + C::KV_BYTES + ch * C::KV_CHUNK, &tv, ch * CH, j * C::BK, kvh, full);
       }
     }
-
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {                  // rows g and g + 8
-      const int row = q0 + r0 + g + 8 * hf + off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + n * 8 + 2 * tq + e;
-          float x = sc[n][2 * hf + e] * scale;
-          if (col >= t) {
-            x = -INFINITY;                            // padding: p = 0 exactly
-          } else {
-            if (causal && row < col) x = NEG;
-            if (window > 0 && row - col >= window) x = NEG;
-          }
-          sc[n][2 * hf + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[hf], quad_max(mx));
-      const float alpha = expf(m[hf] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(sc[n][2 * hf + e] - m_new);
-          ps += p;
-          sc[n][2 * hf + e] = p;
-        }
-      l[hf] = l[hf] * alpha + quad_sum(ps);
-      m[hf] = m_new;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][2 * hf] *= alpha;
-        acc[d][2 * hf + 1] *= alpha;
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_f(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_f(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_f(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_f(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < DT; d += 2) {               // V fragments of dim tiles d, d+1
-        uint32_t vb[4];
-        ldsm_x4_t(vb, vs + (kk * 16 + (li & 1) * 8 + lr) * DP + (d + (li >> 1)) * 8);
-        mma_bf16(acc[d], pa, vb[0], vb[1]);
-        mma_bf16(acc[d + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();                                  // done with this buffer
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = q0 + r0 + g + 8 * hf;
-    if (r >= s) continue;
-    const float den = fmaxf(l[hf], 1e-30f);
-    __nv_bfloat16* op = o + ((size_t)bh * s + r) * D + 2 * tq;
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<uint32_t*>(op + d * 8) =
-          pack_f(acc[d][2 * hf] / den, acc[d][2 * hf + 1] / den);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
+    consume<C>(sq, skv, bars, o, bh, q0, w - 1, s, t, c, causal, window, jlo, jhi);
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b, int hq,
-               int hkv, int s, int t, float scale, int causal, int window,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_mma<D>,
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call and the library links no
+// libcuda: the runtime hands out the driver's entry point
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map over a contiguous [heads, rows, d] bf16 tensor whose box is one
+// 64-column chunk of `box_rows` rows of one head; rows past the end of a head
+// read as zeros (a 2-D map over [heads * rows, d] would read the next head)
+bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int heads, int rows,
+                int d, int box_rows) {
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(rows), cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * 2, cuuint64_t(rows) * d * 2};
+  const cuuint32_t box[3] = {cuuint32_t(CH), cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class C>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
+           int s, int t, float scale, int causal, int window, cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return int(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, enc, q, b * hq, s, C::D, ROWS) ||
+      !tensor_map(&tk, enc, k, b * hkv, t, C::D, C::BK) ||
+      !tensor_map(&tv, enc, v, b * hkv, t, C::D, C::BK))
+    return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
+                                       C::SMEM);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((s + MQ - 1) / MQ, b * hq);
-  flash_mma<D><<<grid, MT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq, hkv, s,
-      t, scale, causal, window);
+  const dim3 grid((s + C::BQ - 1) / C::BQ, b * hq);
+  flash_wgmma<C><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, s, t, scale * LOG2E, causal,
+      window);
   return int(cudaGetLastError());
 }
+
+}  // namespace wg
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b, int hq,
@@ -509,22 +865,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
 extern "C" {
 
 // q [b, hq, s, d], k/v [b, hkv, t, d], o [b, hq, s, d], all contiguous.
+// *wgmma is set to 1 where the wgmma kernel was launched, else to 0.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int b,
                         int hq, int hkv, int s, int t, int d, float scale,
-                        int causal, int window, void* stream) {
+                        int causal, int window, void* stream, int* wgmma) {
+  *wgmma = 0;
   return launch<float>(q, k, v, o, b, hq, hkv, s, t, d, scale, causal, window, stream);
 }
 
+// D 64 and 128 take the wgmma path; D 32 the FMA path.  q, k and v must
+// start on 16-byte boundaries (TMA's rule for a map's base).
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int b,
                          int hq, int hkv, int s, int t, int d, float scale,
-                         int causal, int window, void* stream) {
-  if (b > 0 && s > 0 && t > 0 && hkv > 0 && hq % hkv == 0 && b * hq <= 65535) {
+                         int causal, int window, void* stream, int* wgmma) {
+  *wgmma = 0;
+  if (b > 0 && s > 0 && t > 0 && hkv > 0 && hq % hkv == 0 && b * hq <= 65535 &&
+      (d == 64 || d == 128)) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d == 64) return launch_mma<64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
-    if (d == 128) return launch_mma<128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
+    const int e =
+        d == 64
+            ? wg::launch<wg::Cfg64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st)
+            : wg::launch<wg::Cfg128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
+    *wgmma = e == 0;
+    return e;
   }
   return launch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, t, d, scale, causal, window,
                                stream);
+}
+
+// dynamic shared memory of the wgmma path at head dim d (0: no such path),
+// for the wrapper's launch plan to be checked against
+int flash_attention_wgmma_smem(int d) {
+  return d == 64 ? wg::Cfg64::SMEM : d == 128 ? wg::Cfg128::SMEM : 0;
 }
 
 }  // extern "C"

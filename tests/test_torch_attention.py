@@ -13,13 +13,20 @@ Contract, on the CPU with the plain PyTorch versions, on inputs made with
 - ``rope`` and ``mrope`` at 1e-6;
 - ``apply_attention`` (both implementations) and ``decode_attention`` (the
   plain cache, a window, the hybrid ring, and the cache write clamped at
-  ``S_max - 1`` as ``dynamic_update_slice`` clamps it) at 1e-5 in float32.
+  ``S_max - 1`` as ``dynamic_update_slice`` clamps it) at 1e-5 in float32;
+- the kernel's launch plan (pure Python): which path each form of
+  ``chip_smoke.FLASH_FORMS`` and each of the 10 configs takes, and that its
+  shared memory fits; ``blockwise_ref`` at the ``wgmma`` path's key tile
+  (``KEY_TILE``) against the Pallas kernel and the XLA twin; and
+  ``chip_smoke.FLASH_TILE == KEY_TILE``.
 
 The CUDA kernel runs only on a card: the ``cuda``-marked test skips here
 (``python3 chip_smoke.py`` holds it against the plain version on the card).
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.experimental
@@ -41,7 +48,8 @@ from repro.kernels.flash_attention import ref as ref_ref  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs import all_arch_names, get_config, get_smoke  # noqa: E402
+from repro_torch.kernels.build import MAX_SMEM_BYTES  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.models import attention as PA  # noqa: E402
@@ -252,6 +260,84 @@ def test_cpu_takes_the_plain_version_and_kernel_refuses_cpu():
     assert fa_kernel.LAUNCHES == n0
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library only)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+FLASH_FORMS = _chip_smoke().FLASH_FORMS
+
+
+def _check_plan(dtype, d, s):
+    plan = fa_kernel.plan(dtype, d, s)
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    assert plan["path"] == ("wgmma" if wgmma else "fma")
+    assert plan["key_tile"] == (fa_kernel.KEY_TILE if wgmma else 64)
+    assert 0 < plan["smem"] <= MAX_SMEM_BYTES
+    assert plan["blocks"] * plan["block_q"] >= s > (plan["blocks"] - 1) * plan["block_q"]
+    if wgmma:           # a producer warpgroup and 64 query rows per consumer
+        assert plan["threads"] == 128 * (1 + plan["block_q"] // 64)
+        assert plan["stages"] >= 2
+    return plan
+
+
+@pytest.mark.parametrize("form", FLASH_FORMS, ids=lambda f: f[0])
+def test_launch_plan_of_chip_smoke_forms(form):
+    _, _, b, hq, hkv, s, d, window, dt = form
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    plan = _check_plan(dtype, d, s)
+    assert plan["path"] == ("wgmma" if dt == "bf16" and d != 32 else "fma")
+
+
+@pytest.mark.parametrize("name", all_arch_names())
+def test_launch_plan_of_configs(name):
+    """Every config's attention (bfloat16, its head dim) takes the wgmma
+    path at full width and the FMA path at smoke width (D 32)."""
+    for cfg, path in ((get_config(name), "wgmma"), (get_smoke(name), "fma")):
+        assert cfg.dtype == "bfloat16"
+        assert _check_plan(torch.bfloat16, cfg.hd, 8192)["path"] == path
+
+
+def test_chip_smoke_flash_tile_is_the_kernel_key_tile():
+    assert _chip_smoke().FLASH_TILE == fa_kernel.KEY_TILE
+
+
+@pytest.mark.parametrize("s,t,window", [(256, 256, 0), (256, 256, 64), (128, 384, 0)])
+def test_blockwise_ref_at_key_tile_vs_pallas_and_twin(s, t, window):
+    """The plain version at the kernel's key tile against the Pallas kernel
+    (interpret mode, where S == T and no window) and the XLA twin (which
+    takes lengths its blocks divide)."""
+    tile = fa_kernel.KEY_TILE
+    q, k, v = _qkv(1, 4, 2, s, t, 64, seed=s + window)
+    twin = RA.blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=True, window=window, block_q=64, block_k=tile)
+    got = fa.blockwise_ref(_t(q), _t(k), _t(v), causal=True, window=window, block_k=tile)
+    np.testing.assert_allclose(_np(got), _np(twin), **TOL)
+    if s == t and not window:
+        rk, rv = (np.repeat(a, 2, axis=1) for a in (k, v))
+        pal = pallas.flash_attention_bhsd(jnp.asarray(q[0]), jnp.asarray(rk[0]),
+                                          jnp.asarray(rv[0]), causal=True, block_q=64,
+                                          block_k=tile, interpret=True)
+        np.testing.assert_allclose(_np(got)[0], _np(pal), **TOL)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)            # noqa: E731
+    tb = lambda a: _t(_np(bf(a)), torch.bfloat16)                 # noqa: E731
+    got16 = fa.blockwise_ref(tb(q), tb(k), tb(v), causal=True, window=window,
+                             block_k=tile)
+    twin16 = RA.blockwise_attention(bf(q), bf(k), bf(v), causal=True, window=window,
+                                    block_q=64, block_k=tile)
+    assert got16.dtype == torch.bfloat16
+    assert float(np.abs(_np(got16) - _np(twin16)).max()) < 0.05
+    if s == t and not window:
+        pal16 = pallas.flash_attention_bhsd(bf(q[0]), bf(rk[0]), bf(rv[0]), causal=True,
+                                            block_q=64, block_k=tile, interpret=True)
+        assert float(np.abs(_np(got16)[0] - _np(pal16)).max()) < 0.05
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_cuda_kernel_vs_plain(dtype):
@@ -260,19 +346,23 @@ def test_cuda_kernel_vs_plain(dtype):
     dev = torch.device("cuda")
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
     for (s, t, window) in ((256, 256, 0), (200, 200, 64), (100, 300, 0)):
-        q, k, v = (_t(a, dt).to(dev) for a in _qkv(2, 8, 2, s, t, 64, seed=s))
-        n0 = fa_kernel.LAUNCHES
-        got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        assert fa_kernel.LAUNCHES == n0 + 1
-        if dtype == "f32":
-            want = fa.blockwise_ref(q, k, v, causal=True, window=window)
-            torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
-        else:
-            # the plain version in bfloat16 at the kernel's 64-key tiles
-            # rounds P as the kernel does: within an output ulp plus 1e-3
-            want = fa.blockwise_ref(q, k, v, causal=True, window=window, block_k=64)
-            torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2 ** -7)
-            ref32 = fa.blockwise_ref(q.float(), k.float(), v.float(), causal=True,
-                                     window=window)
-            assert float((got.float() - ref32).abs().max()) <= 2e-2
+        for d in ((64,) if dtype == "f32" else (64, 128)):
+            q, k, v = (_t(a, dt).to(dev) for a in _qkv(2, 8, 2, s, t, d, seed=s))
+            n0, w0 = fa_kernel.LAUNCHES, fa_kernel.LAUNCHES_WGMMA
+            got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            assert fa_kernel.LAUNCHES == n0 + 1
+            assert fa_kernel.LAUNCHES_WGMMA == w0 + (dtype == "bf16")
+            if dtype == "f32":
+                want = fa.blockwise_ref(q, k, v, causal=True, window=window)
+                torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+            else:
+                # the plain version in bfloat16 at the kernel's key tiles
+                # rounds P as the kernel does: within an output ulp plus 1e-3
+                want = fa.blockwise_ref(q, k, v, causal=True, window=window,
+                                        block_k=fa_kernel.KEY_TILE)
+                torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                           rtol=2 ** -7)
+                ref32 = fa.blockwise_ref(q.float(), k.float(), v.float(), causal=True,
+                                         window=window)
+                assert float((got.float() - ref32).abs().max()) <= 2e-2
