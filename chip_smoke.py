@@ -7,8 +7,9 @@ toolkit:
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
 
-Phases, one result line each; any failure exits non-zero without the final
-``{"ok": true, ...}`` line:
+Phases, one result line each (every record also goes to
+``build/chip_smoke_stats.json``); any failure exits non-zero without the
+final ``{"ok": true, ...}`` line:
 
   device   the card's name and power limit (nvidia-smi).
   build    compile the hand-written kernels (one nvcc per source, together).
@@ -16,7 +17,13 @@ Phases, one result line each; any failure exits non-zero without the final
            float32; netsim ungated and gated absolute float64, gated slack
            float32; iSLIP at 8 and 32 ports, 1-4 iterations, batches of 1
            and 4096; the header parser on the hft and datacenter protocols
-           at 9,600 and 1,048,576 headers; int8 quantize from float32 and
+           at 9,600 and 1,048,576 headers; the fused cycle loop
+           (switch_loop, every output) on hft's rung-4 champion at full
+           length, the 12 forward table x VOQ x scheduler kinds on 2,000
+           cycles of hft, 32-port iSLIP with 1-4 rounds on saturating
+           traffic, a ring and a table placed in device memory, a
+           Shared-VOQ incast that drops and a broadcast-heavy Ethernet
+           header on a small hash table; int8 quantize from float32 and
            bfloat16 and dequantize to both, at the dispatch buffers of
            comm_small and moe_dispatch and of one full-width
            qwen3-moe-235b-a22b layer, [131072, 4096], with all-zero groups
@@ -44,9 +51,9 @@ Phases, one result line each; any failure exits non-zero without the final
            verify_engine="auto" (the champion escalated to the cycle-level
            switch), compared with the
            JAX package's runs recorded in tests/torch_golden/: the report,
-           the escalated cycle result exactly, and the calibrated η; islip
-           and parser must launch.  Stage walls, calibration and rung-4
-           walls;
+           the escalated cycle result exactly, and the calibrated η;
+           switch_loop (one launch per simulation) and parser must launch.
+           Stage walls, calibration and rung-4 walls, µs per cycle;
            (c) the comm domain: run_scenario on comm_small (against
            tests/golden/comm_small.json), moe_dispatch and grad_bucket
            (registry settings) with the JAX package's router, LSH projection
@@ -76,10 +83,13 @@ Phases, one result line each; any failure exits non-zero without the final
            ms and launches, peak memory, the int8 payload's relative error
            against bf16, and the invariants (loads sum to tokens x k, the
            champion's drop rate within the SLA).
-  profile  (only when named) the cycle-level switch's loop under
+  profile  (only when named) the cycle-level switch under
            torch.profiler: kernel launches per simulated cycle, the device's
            busy share, and device time by kernel, for hft's iSLIP
-           calibration run and 2,000 cycles of its rung-4 champion.
+           calibration run and 2,000 cycles of its rung-4 champion (the
+           fused loop: one switch_loop launch per simulation); then
+           cProfile over one datacenter calibration (32 ports): the host
+           functions that take its wall.
 
 Needs no network and imports nothing of JAX or of the JAX package ``repro``.
 Exits non-zero when no CUDA device is available.
@@ -342,6 +352,7 @@ def phase_kernels(dev, stats):
                 ok &= equal
     ok &= kernels_islip(dev, stats)
     ok &= kernels_parser(dev, stats)
+    ok &= kernels_switch_loop(dev, stats)
     ok &= kernels_quant(dev, stats)
     ok &= kernels_flash(dev, stats)
     ok &= kernels_ssd(dev, stats)
@@ -435,6 +446,144 @@ def kernels_parser(dev, stats):
                    "ms": cuda_ms(kern, reps=20), "plain_ms": wall_ms(plain),
                    "bound_ms": bound, "bound_by": by}
             ok &= _record(stats, rec, (got,), (want,))
+    return ok
+
+
+def _switch_form(arch, bound, trace, fclk, max_cycles, dev):
+    """The fused loop's inputs for one simulation, as simulate makes them."""
+    import torch
+    from repro_torch.kernels.parser import parse_headers
+    from repro_torch.switch.switch import prepare_cycle_inputs
+    prep = prepare_cycle_inputs(arch, bound, trace, fclk, max_cycles=max_cycles)
+    words = torch.from_numpy(prep["header_words"]).to(dev)
+    keys = parse_headers(bound.protocol, [bound.semantics["routing_key"],
+                                          bound.semantics["src_key"]], words)
+    return (torch.from_numpy(prep["arr_pid"]).to(dev), keys,
+            torch.from_numpy(prep["size_flits"]).to(dev))
+
+
+def _port_trace(name, senders, n_ports, cycles, fclk, dst_of, payload):
+    """One packet per cycle from each of ports 0..senders-1 (saturation),
+    destinations dst_of(rng, src, count)."""
+    import numpy as np
+    from repro_torch.traces.base import Trace
+    rng = np.random.default_rng(2)
+    t = np.arange(cycles) / fclk
+    times, srcs, dsts = [], [], []
+    for s in range(senders):
+        times.append(t)
+        srcs.append(np.full(cycles, s))
+        dsts.append(dst_of(rng, s, cycles))
+    return Trace(name, np.concatenate(times), np.concatenate(srcs),
+                 np.concatenate(dsts), np.full(senders * cycles, payload), n_ports)
+
+
+def switch_loop_forms(dev):
+    """form -> (arch, bound, trace, fclk, max_cycles) of the fused loop's
+    checks: hft's rung-4 champion at full length (the main form, 97,720
+    cycles); the 12 table x VOQ x scheduler kinds on a 2,000-cycle cut of
+    hft; 32-port iSLIP on datacenter's calibration traffic with 1-4 rounds;
+    a ring and a table too large for shared memory; a Shared-VOQ incast
+    that drops; and a broadcast-heavy Ethernet header on a small hash table
+    (evictions, unlearned destinations)."""
+    import numpy as np
+    from repro_torch.api import build_bound, registry
+    from repro_torch.core import bind, ethernet_ipv4_udp
+    from repro_torch.core.archspec import (ForwardTableKind, SchedulerKind,
+                                           SwitchArch, VOQKind)
+    from repro_torch.sim.resources import synthesize
+
+    def fclk(arch, bound):
+        return synthesize(arch, bound).fmax_mhz * 1e6
+
+    hft_bound = build_bound(registry["hft"])
+    hft_trace = registry["hft"].trace.build()
+    forms = {}
+    champ = SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                       SchedulerKind.RR, voq_depth=288, addr_bits=4)
+    forms["hft_rung4_champion"] = (champ, hft_bound, hft_trace,
+                                   fclk(champ, hft_bound), None)
+    for fwd in ForwardTableKind:
+        for voq in VOQKind:
+            for sched in SchedulerKind:
+                arch = SwitchArch(8, 128, fwd, voq, sched, voq_depth=2, addr_bits=4,
+                                  hash_banks=2, hash_depth=8)
+                name = f"hft2000_{fwd.value}_{voq.value}_{sched.value}"
+                forms[name] = (arch, hft_bound, hft_trace, fclk(arch, hft_bound), 2000)
+    dc_bound = build_bound(registry["datacenter"])
+    for iters in (1, 2, 3, 4):
+        arch = SwitchArch(32, 1024, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                          SchedulerKind.ISLIP, voq_depth=36, islip_iters=iters,
+                          addr_bits=5)
+        f = fclk(arch, dc_bound)
+        uniform = _port_trace("calib32", 32, 32, 1200, f, lambda rng, s, c: (
+            (lambda d: np.where(d >= s, d + 1, d))(rng.integers(0, 31, c))), 64)
+        forms[f"islip32_it{iters}"] = (arch, dc_bound, uniform, f, 1456)
+    # state that does not fit in shared memory (kernel.plan): a 32-port
+    # depth-2,048 ring, and a 16-bit full-lookup table, in device memory
+    arch = SwitchArch(32, 256, ForwardTableKind.MULTIBANK_HASH, VOQKind.SHARED,
+                      SchedulerKind.EDRRM, voq_depth=2048, addr_bits=5)
+    f = fclk(arch, dc_bound)
+    forms["ring_in_device_memory"] = (arch, dc_bound, _port_trace(
+        "calib32", 32, 32, 1200, f, lambda rng, s, c: rng.integers(0, 32, c), 16),
+        f, 1456)
+    arch = SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                      SchedulerKind.ISLIP, voq_depth=64, addr_bits=16)
+    forms["table_in_device_memory"] = (arch, hft_bound, hft_trace,
+                                       fclk(arch, hft_bound), 2000)
+    arch = SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.SHARED,
+                      SchedulerKind.ISLIP, voq_depth=4, addr_bits=4)
+    f = fclk(arch, hft_bound)
+    incast = _port_trace("incast", 8, 8, 600, f, lambda rng, s, c: np.full(c, 0 if s else 1), 16)
+    forms["shared_incast"] = (arch, hft_bound, incast, f, 1000)
+    eth = bind(ethernet_ipv4_udp(), flit_bits=256)
+    arch = SwitchArch(8, 128, ForwardTableKind.MULTIBANK_HASH, VOQKind.SHARED,
+                      SchedulerKind.EDRRM, voq_depth=8, addr_bits=48, hash_banks=2,
+                      hash_depth=4)
+    f = fclk(arch, eth)
+    # ports 0-3 send, to all 8: ports 4-7 are never learned (broadcast)
+    bcast = _port_trace("bcast", 4, 8, 500, f, lambda rng, s, c: rng.integers(0, 8, c), 16)
+    forms["eth_hash_broadcast"] = (arch, eth, bcast, f, 1500)
+    return forms
+
+
+def kernels_switch_loop(dev, stats):
+    """The fused cycle loop against the eager loop, bitwise, every output."""
+    import torch
+    from repro_torch.kernels.switch_loop import kernel as slk
+    from repro_torch.kernels.switch_loop import switch_loop_ref
+
+    ok = True
+    for form, (arch, bound, trace, fclk, cycles) in switch_loop_forms(dev).items():
+        arr, keys, sizes = _switch_form(arch, bound, trace, fclk, cycles, dev)
+        kern = lambda: slk.switch_loop_launch(arch, arr, keys, sizes)  # noqa: E731
+        plain = lambda: switch_loop_ref(arch, arr, keys, sizes)       # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t_plain) * 1e3
+        t, n = arr.shape
+        npkt = keys.shape[0]
+        # read arr_pid, each packet's keys and size once; write its departure
+        # cycle, the occupancy trace, the per-queue maxima and 3 counters
+        moved = t * n * 4 + npkt * 12 + max(npkt, 1) * 8 + t * 8 + n * n * 8 + 24
+        bound_ms, by = _bound(moved, t * n * n, 4)
+        k_ms = cuda_ms(kern, reps=3)
+        p = slk.plan(arch, npkt)
+        rec = {"kernel": "switch_loop", "form": form, "shape": f"T{t}",
+               "arch": arch.short(), "n_ports": n, "packets": npkt, "cycles": t,
+               "delivered": int(want.delivered), "drops": int(want.drops),
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": by,
+               "chain_cycles": t, "us_per_cycle": k_ms * 1e3 / max(t, 1),
+               "plain_us_per_cycle": p_ms * 1e3 / max(t, 1),
+               "smem_bytes": p.smem_bytes, "table_shared": p.table_shared,
+               "ring_shared": p.ring_shared}
+        ok &= _record(stats, rec, tuple(got), tuple(want))
+        if int(want.delivered) == 0:
+            print(f"switch_loop form {form} delivered nothing", file=sys.stderr)
+            ok = False
     return ok
 
 
@@ -738,11 +887,13 @@ def _counters():
     from repro_torch.kernels.islip import kernel as ik
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.netsim import kernel as nk
+    from repro_torch.kernels.switch_loop import kernel as slk
     from repro_torch.kernels.parser import kernel as pk
     from repro_torch.kernels.quant_pack import kernel as qk
     from repro_torch.kernels.xbar import kernel as xk
     return {"xbar_scan": (xk, "LAUNCHES"), "netsim_replay": (nk, "LAUNCHES"),
             "islip_schedule": (ik, "LAUNCHES"),
+            "switch_loop": (slk, "LAUNCHES"),
             "parse_headers": (pk, "LAUNCHES"),
             "quantize": (qk, "QUANTIZE_LAUNCHES"),
             "dequantize": (qk, "DEQUANTIZE_LAUNCHES"),
@@ -841,7 +992,8 @@ def _check_switch_run(name, report, eta_cache):
 
 def path_switch(dev, stats):
     """(b) the registry's defaults (back-annotation) with the champion
-    escalated to the cycle-level switch; islip and parser must launch."""
+    escalated to the cycle-level switch; switch_loop and parser must
+    launch."""
     import repro_torch.switch.switch as sw
     from repro_torch.api import registry, run_scenario
     from repro_torch.sim import backannotate
@@ -882,11 +1034,11 @@ def path_switch(dev, stats):
         launches = _read_counters()
     finally:
         sw.simulate = real
-    stats["launches"].update({k: launches[k]
-                              for k in ("islip_schedule", "parse_headers")})
+    stats["launches"].update({k: launches[k] for k in
+                              ("switch_loop", "parse_headers", "islip_schedule")})
     say("path", path="switch", launches=launches)
-    if not (launches["islip_schedule"] > 0 and launches["parse_headers"] > 0):
-        failures.append(f"islip/parser did not run on the switch path: {launches}")
+    if not (launches["switch_loop"] > 0 and launches["parse_headers"] > 0):
+        failures.append(f"switch_loop/parser did not run on the switch path: {launches}")
     return failures
 
 
@@ -1529,6 +1681,48 @@ def phase_profile(dev, stats):
         say("profile", **rec)
         if not kernels:
             raise AssertionError("torch.profiler recorded no CUDA kernel")
+    host_profile_calibration(dev, stats)
+
+
+def host_profile_calibration(dev, stats):
+    """Where a calibration's host time goes: cProfile over one datacenter
+    calibration (32 ports, 38,400 packets), its champion's family."""
+    import cProfile
+    import pstats
+    import torch
+    from repro_torch.api import build_bound, registry
+    from repro_torch.core.archspec import (ForwardTableKind, SchedulerKind,
+                                           SwitchArch, VOQKind)
+    from repro_torch.sim import backannotate
+    from repro_torch.sim.resources import synthesize
+
+    bound = build_bound(registry["datacenter"])
+    arch = SwitchArch(32, 1024, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                      SchedulerKind.ISLIP, voq_depth=36, addr_bits=5)
+    fclk = synthesize(arch, bound).fmax_mhz * 1e6
+
+    def fn():
+        backannotate._ETA_CACHE.clear()
+        backannotate._measured_eta(arch, bound, fclk, device=dev)
+        torch.cuda.synchronize()
+    fn()                                   # warm: the kernels are loaded
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = [(f"{os.path.basename(path)}:{line}:{name}", cc, tt, ct)
+            for (path, line, name), (cc, _nc, tt, ct, _) in st.stats.items()]
+    fmt = lambda rs: [[name, cc, round(tt, 6), round(ct, 6)]  # noqa: E731
+                      for name, cc, tt, ct in rs]
+    rec = {"run": f"host calibration datacenter {arch.short()}",
+           "wall_profiled_s": wall, "total_tt_s": st.total_tt,
+           "top_tottime_s": fmt(sorted(rows, key=lambda r: -r[2])[:10]),
+           "top_cumtime_s": fmt(sorted(rows, key=lambda r: -r[3])[:10])}
+    stats.setdefault("profile", []).append(rec)
+    say("profile", **rec)
 
 
 # --------------------------------------------------------------------------
@@ -1542,10 +1736,16 @@ KERNELS = {
     "netsim_replay": {"source": "src/repro_torch/csrc/netsim.cu",
                       "replaces": "src/repro/kernels/netsim/kernel.py:62",
                       "main": ("netsim_ungated_abs_f64", "hft")},
-    # the cycle loop's call: one 8-port switch, the hft calibration's 2 rounds
+    # no longer on a main path (its rounds run inside switch_loop, from
+    # csrc/islip_match.cuh): one 8-port switch, 2 rounds
     "islip_schedule": {"source": "src/repro_torch/csrc/islip.cu",
                        "replaces": "src/repro/kernels/islip/kernel.py:73",
                        "main": ("islip_n8_it2", "B1")},
+    # one launch per simulation: hft's rung-4 champion at full length
+    "switch_loop": {"source": "src/repro_torch/csrc/switch_loop.cu",
+                    "replaces": "src/repro/switch/switch.py:214 (lax.scan) and "
+                                "src/repro/kernels/islip/kernel.py:73",
+                    "main": ("hft_rung4_champion", None)},
     # hft's calibration trace: 9,600 headers parsed once before the loop
     "parse_headers": {"source": "src/repro_torch/csrc/parser.cu",
                       "replaces": "src/repro/kernels/parser/kernel.py:45",
@@ -1576,7 +1776,7 @@ def kernels_line(stats):
         forms = [r for r in stats["forms"] if r["kernel"] == name]
         form, shape = meta["main"]
         main = next((r for r in forms if r["form"] == form
-                     and r["shape"] == shape), {})
+                     and shape in (None, r["shape"])), {})
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
@@ -1630,8 +1830,9 @@ def main(argv=None) -> int:
         if log.exists():
             regs[name] = [ln.strip() for ln in log.read_text().splitlines()
                           if "registers" in ln]
-    say("build", seconds=time.perf_counter() - t0, build_dir=str(BUILD_DIR),
-        ptxas=regs)
+    build = {"seconds": time.perf_counter() - t0, "build_dir": str(BUILD_DIR),
+             "ptxas": regs}
+    say("build", **build)
 
     stats = {"forms": [], "scale": [], "switch": [], "comm": [], "serving": [],
              "launches": {}}
@@ -1648,6 +1849,11 @@ def main(argv=None) -> int:
             traceback.print_exc()
             say(name, status="FAILED", seconds=time.perf_counter() - t0)
             failed.append(name)
+    out = os.path.join(ROOT, "build")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke_stats.json"), "w") as f:
+        json.dump({"device": smi, "build": build, "failed": failed, **stats}, f,
+                  indent=1, default=str)
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1

@@ -25,27 +25,18 @@
 // one __ballot_sync per output; the rotating-priority pick is a rotate of
 // the candidate mask by the pointer and __ffs; an input learns its grants
 // with one ballot per input, and an output learns whether it was accepted
-// with one shuffle.  WARPS instances share a block.  N <= 32.
+// with one shuffle.  The rounds live in islip_match.cuh, which the fused
+// switch loop (switch_loop.cu) runs too.  WARPS instances share a block.
+// N <= 32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "islip_match.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;   // instances per block, one warp each
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// floor modulo: CUDA's % truncates toward zero, the reference's is floor
-__device__ __forceinline__ int fmod_n(int x, int n) { return ((x % n) + n) % n; }
-
-// first set bit of `mask` (bits 0..n-1) at or after `p`, cyclically; -1 if none
-__device__ __forceinline__ int rot_pick(unsigned mask, int p, int n) {
-  if (mask == 0u) return -1;
-  const unsigned long long m = mask;
-  const unsigned long long nmask = (1ull << n) - 1ull;   // n <= 32
-  const unsigned rot = (unsigned)(((m >> p) | (m << (n - p))) & nmask);
-  return (__ffs(rot) - 1 + p) % n;
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 islip_kernel(const int32_t* __restrict__ req,    // [B, N, N]
@@ -66,41 +57,15 @@ islip_kernel(const int32_t* __restrict__ req,    // [B, N, N]
   if (port)
     for (int j = 0; j < N; ++j) row |= (r[lane * N + j] != 0 ? 1u : 0u) << j;
   // lane j: who requests output j, as a mask over inputs
-  unsigned col = 0u;
-  for (int j = 0; j < N; ++j) {
-    const unsigned c = __ballot_sync(FULL, port && ((row >> j) & 1u));
-    if (lane == j) col = c;
-  }
+  const unsigned col = spac::transpose_rows(row, N, lane);
 
-  const int g0 = port ? fmod_n(gptr[b * N + lane], N) : 0;
-  const int a0 = port ? fmod_n(aptr[b * N + lane], N) : 0;
+  const int g0 = port ? spac::fmod_n(gptr[b * N + lane], N) : 0;
+  const int a0 = port ? spac::fmod_n(aptr[b * N + lane], N) : 0;
   int g_new = port ? gptr[b * N + lane] : 0;
   int a_new = port ? aptr[b * N + lane] : 0;
-  unsigned in_busy = 0u, out_busy = 0u;    // matched inputs / outputs
-  unsigned my_match = 0u;                  // lane i: outputs it was matched to
-  for (int it = 0; it < iters; ++it) {
-    // grant: output lane picks a free requesting input
-    const int grant = (port && !((out_busy >> lane) & 1u))
-                          ? rot_pick(col & ~in_busy, g0, N) : -1;
-    // accept: input lane gathers the outputs that granted it
-    unsigned grants = 0u;
-    for (int i = 0; i < N; ++i) {
-      const unsigned g = __ballot_sync(FULL, grant == i);
-      if (lane == i) grants = g;
-    }
-    const int acc = port ? rot_pick(grants, a0, N) : -1;
-    // output lane: was my grant accepted?
-    const int src = grant >= 0 ? grant : 0;
-    const int back = __shfl_sync(FULL, acc, src);
-    const bool out_acc = grant >= 0 && back == lane;
-    if (acc >= 0) my_match |= 1u << acc;
-    if (it == 0) {
-      if (out_acc) g_new = (grant + 1) % N;
-      if (acc >= 0) a_new = (acc + 1) % N;
-    }
-    in_busy |= __ballot_sync(FULL, acc >= 0);
-    out_busy |= __ballot_sync(FULL, out_acc);
-  }
+  int out_in;
+  const unsigned my_match =
+      spac::islip_rounds(col, g0, a0, iters, N, lane, g_new, a_new, out_in);
   if (port) {
     int32_t* m = match + b * N * N + lane * N;
     for (int j = 0; j < N; ++j) m[j] = (my_match >> j) & 1u;

@@ -2,7 +2,8 @@
 
   xbar/    - greedy-crossbar contention scan (stage 2)
   netsim/  - admission-gated port replay and the fixed point (stage 4)
-  islip/   - batched iSLIP matching (the cycle-level switch's scheduler)
+  islip/   - batched iSLIP matching (the eager loop's scheduler step)
+  switch_loop/ - the cycle-level switch, every cycle in one launch
   parser/  - protocol header field extraction (the switch's ingress)
   quant_pack/ - int8 payload quantize/dequantize (the MoE dispatch fabric)
   flash_attention/ - causal GQA attention, online softmax (the prefill)

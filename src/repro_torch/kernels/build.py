@@ -3,8 +3,8 @@
 Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded with
 ``ctypes``.  Libraries go to ``build/repro_torch/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is reused.  Nothing is built when the package
+checkout, named by a hash of the source, the shared headers (``*.cuh``) and
+the flags, so an edited kernel is rebuilt and an unchanged one is reused.  Nothing is built when the package
 is imported: the first launch builds what it needs, and ``build_all()``
 builds every kernel at once (one ``nvcc`` per source, all started together).
 
@@ -36,7 +36,7 @@ CSRC = _PKG / "csrc"
 #: build directory at the checkout root (``src/repro_torch`` -> ``.``)
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES = ("xbar", "netsim", "islip", "parser", "quant_pack", "flash_attention",
-           "ssd")
+           "ssd", "switch_loop")
 #: dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +59,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # sources include them
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -9,9 +9,11 @@ whole switch steps one cycle at a time without reading the device:
   purpose; it is why RR under-performs on uniform traffic in Fig. 1).
 * **iSLIP** — ``islip_iters`` request/grant/accept iterations; grant/accept
   pointers move only on a first-iteration accepted grant (McKeown's rule),
-  which desynchronises outputs and approaches 100% uniform throughput.  It
-  runs through ``repro_torch.kernels.islip`` with a batch of one: the
-  hand-written CUDA kernel on a card, its plain version on the CPU.
+  which desynchronises outputs and approaches 100% uniform throughput.  In
+  this eager step it runs through ``repro_torch.kernels.islip`` with a batch
+  of one.  On a card ``simulate`` runs all three schedulers inside the fused
+  cycle loop (``repro_torch.kernels.switch_loop``); this module is that
+  loop's plain version on the CPU.
 * **EDRRM** — dual round-robin request/grant with *exhaustive service*: a
   matched (input, output) pair is held as long as the queue stays non-empty,
   amortising arbitration across a burst (why it wins on bursty traffic).

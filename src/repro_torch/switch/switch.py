@@ -18,35 +18,36 @@ This model is the repo's "real hardware": hardware back-annotation
 and ``verify_engine="cycle"``/``"auto"`` verify on it (rung 4).
 
 PyTorch port of the JAX package's ``switch/switch.py``.  The reference's
-jitted ``lax.scan`` becomes a Python loop over cycles whose body runs on the
-device and never reads a device value on the host, so the card runs ahead
-of the loop; counters stay tensors until the loop ends.  Every header is
-parsed once, before the loop, by the parser op (the hand-written CUDA
-kernel on a card) and each cycle gathers its ports' fields: parsing is a
-pure function of the packet, so this is the reference's per-cycle parse.
-Latency, percentiles and throughput are host NumPy after the loop, copied
-from the reference.
+jitted ``lax.scan`` over cycles becomes the ``switch_loop`` op
+(``repro_torch.kernels.switch_loop``): on a card, one launch of a
+hand-written CUDA kernel runs every cycle of the simulation; on the CPU its
+plain version, the eager loop, steps the table, VOQ and scheduler modules
+here once a cycle.  An architecture whose custom kernel carries a Python
+``fn`` runs only on the CPU: no CUDA kernel can call Python, and on a card
+the kernel's wrapper refuses it.  Every header is parsed once, before the loop, by the parser op
+(the hand-written CUDA kernel on a card) and each cycle gathers its ports'
+fields: parsing is a pure function of the packet, so this is the
+reference's per-cycle parse.  Latency, percentiles and throughput are host
+NumPy after the loop, copied from the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.archspec import SchedulerKind, SwitchArch
+from repro_torch.core.archspec import SwitchArch
 from repro_torch.core.binding import BoundProtocol
 from repro_torch.device import resolve_device
 from repro_torch.kernels.parser import parse_headers
-from . import forward_table as ft
-from . import scheduler as sch
-from . import voq as vq
+from repro_torch.kernels.switch_loop import ops as loop_ops
 from .parser import pack_header_words
 
-__all__ = ["SwitchSimResult", "prepare_cycle_inputs", "simulate"]
+__all__ = ["SwitchSimResult", "prepare_cycle_inputs", "sim_result", "simulate"]
 
 
 @dataclasses.dataclass
@@ -133,19 +134,6 @@ def prepare_cycle_inputs(
     )
 
 
-class _Carry(NamedTuple):
-    table: object
-    voq: vq.VOQState
-    sched: sch.SchedState
-    busy_in: torch.Tensor     # [N] cycles remaining
-    busy_out: torch.Tensor
-    dep_cycle: torch.Tensor   # [n_packets] last-copy departure cycle (-1 = not yet)
-    delivered: torch.Tensor   # scalar copies delivered
-    occ_max: torch.Tensor     # [N, N]
-    data_max: torch.Tensor    # scalar
-    kstates: Tuple            # custom kernel states
-
-
 def simulate(
     arch: SwitchArch,
     bound: BoundProtocol,
@@ -158,83 +146,28 @@ def simulate(
     """Run the cycle-level switch on a trace and gather per-packet stats.
 
     ``device`` (default: the first CUDA device; raises without one) is where
-    the cycle loop runs."""
+    the cycles run: on a card, one launch of the ``switch_loop`` kernel for
+    the whole simulation; on the CPU, its plain version, the eager loop.
+    An architecture with a custom kernel whose ``fn`` is a Python callable
+    runs with ``device="cpu"``: on a card the kernel's wrapper raises for
+    it."""
     dev = resolve_device(device)
     prep = prepare_cycle_inputs(arch, bound, trace, fclk_hz, max_cycles=max_cycles)
-    n = arch.n_ports
-    npkt = prep["header_words"].shape[0]
-    size_flits = torch.from_numpy(prep["size_flits"]).to(dev, torch.int64)
-    # parse every header once: [npkt, 2] (routing key, src key)
+    size_flits = torch.from_numpy(prep["size_flits"]).to(dev)
+    # parse every header once: [npkt, 2] uint32 (routing key, src key)
     words = torch.from_numpy(prep["header_words"]).to(dev)
     keys = parse_headers(bound.protocol, [bound.semantics["routing_key"],
                                           bound.semantics["src_key"]], words)
-    keys = keys.to(torch.int64)
-    kernels = list(arch.custom_kernels)
-    in_ports = torch.arange(n, dtype=torch.int64, device=dev)
-    is_edrrm = arch.sched is SchedulerKind.EDRRM
+    arr = torch.from_numpy(prep["arr_pid"]).to(dev)
+    out = loop_ops.switch_loop(arch, arr, keys, size_flits)
+    return sim_result(arch, prep, out, fclk_hz)
 
-    def cycle_step(c: _Carry, cyc: torch.Tensor, pids: torch.Tensor):
-        valid = pids >= 0
-        fields = keys[torch.clamp(pids, min=0)]               # [N, 2]
-        dst_key, src_key = fields[:, 0], fields[:, 1]
-        # learn then lookup (learning on every arrival, §III-B.2)
-        table = ft.learn(arch, c.table, src_key, in_ports, valid)
-        out_port = ft.lookup(arch, table, dst_key, valid)
-        # custom kernel hooks
-        kstates = []
-        for spec, kst in zip(kernels, c.kstates):
-            if spec.fn is not None:
-                kst, out_port, valid = spec.fn(kst, pids, out_port, valid, cyc)
-            kstates.append(kst)
-        voq = vq.enqueue(arch, c.voq, pids, out_port, valid)
-        occ = vq.occupancy(voq)
-        match, sched = sch.schedule(arch, c.sched, occ, c.busy_in > 0, c.busy_out > 0)
-        voq, dep_pid, dep_in = vq.dequeue(arch, voq, match)
-        if is_edrrm:
-            # the other schedulers never hold (held stays -1): a no-op there
-            sched = sch.release_exhausted(sched, match, vq.occupancy(voq))
-        # busy counters: transfer occupies ports for size_flits cycles total
-        dep_valid = dep_pid >= 0
-        dep_safe = torch.clamp(dep_pid, min=0)
-        dep_sz = size_flits[dep_safe]
-        hold = dep_sz - 1
-        busy_out = torch.where(dep_valid, hold, torch.clamp(c.busy_out - 1, min=0))
-        in_sz = torch.zeros_like(c.busy_in).scatter_reduce_(
-            0, torch.clamp(dep_in, min=0), torch.where(dep_valid, hold, 0), "amax")
-        busy_in = torch.maximum(torch.clamp(c.busy_in - 1, min=0), in_sz)
-        # departure bookkeeping (last flit leaves at cyc + size); dep_cycle
-        # belongs to this loop, so it is updated in place
-        c.dep_cycle.scatter_reduce_(0, dep_safe, torch.where(dep_valid, cyc + dep_sz, -1),
-                                    "amax")
-        delivered = c.delivered + dep_valid.sum()
-        occ_max = torch.maximum(c.occ_max, occ)
-        data_max = torch.maximum(c.data_max, voq.data_slots)
-        carry = _Carry(table, voq, sched, busy_in, busy_out, c.dep_cycle,
-                       delivered, occ_max, data_max, tuple(kstates))
-        return carry, occ.amax()
 
-    z = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)  # noqa: E731
-    c = _Carry(
-        table=ft.init_table(arch, dev),
-        voq=vq.init_voq(arch, npkt, dev),
-        sched=sch.init_sched(arch, dev),
-        busy_in=z(n),
-        busy_out=z(n),
-        dep_cycle=torch.full((max(npkt, 1),), -1, dtype=torch.int64, device=dev),
-        delivered=z(),
-        occ_max=z(n, n),
-        data_max=z(),
-        kstates=tuple(getattr(k, "init_state", None) for k in kernels),
-    )
-    n_cycles = int(prep["n_cycles"])
-    arr = torch.from_numpy(prep["arr_pid"]).to(dev, torch.int64)
-    cycles = torch.arange(n_cycles, dtype=torch.int64, device=dev)
-    occ_trace = torch.empty((n_cycles,), dtype=torch.int64, device=dev)
-    for k in range(n_cycles):
-        c, occ_peak = cycle_step(c, cycles[k], arr[k])
-        occ_trace[k] = occ_peak
-
-    dep = c.dep_cycle.cpu().numpy()
+def sim_result(arch: SwitchArch, prep: Dict[str, np.ndarray], out,
+               fclk_hz: float) -> SwitchSimResult:
+    """The per-packet stats of one loop's outputs (``SwitchLoopOut``) on the
+    trace ``prep`` binned."""
+    dep = out.dep_cycle.cpu().numpy()
     arrc = prep["arr_cycle"]
     done = dep >= 0
     lat_cycles = (dep[done] - arrc[done]).astype(np.float64)
@@ -245,14 +178,14 @@ def simulate(
     return SwitchSimResult(
         latency_cycles=lat_cycles,
         latency_ns=lat_ns,
-        drops=int(c.voq.drops),
-        offered=int(npkt),
-        delivered_copies=int(c.delivered),
+        drops=int(out.drops),
+        offered=int(prep["header_words"].shape[0]),
+        delivered_copies=int(out.delivered),
         throughput_gbps=delivered_bits / sim_s / 1e9,
         goodput_gbps=goodput_bits / sim_s / 1e9,
-        occ_max=c.occ_max.cpu().numpy(),
-        occ_trace=occ_trace.cpu().numpy(),
-        data_slots_max=int(c.data_max),
+        occ_max=out.occ_max.cpu().numpy(),
+        occ_trace=out.occ_trace.cpu().numpy(),
+        data_slots_max=int(out.data_slots_max),
         n_cycles=int(prep["n_cycles"]),
         fclk_hz=fclk_hz,
     )
