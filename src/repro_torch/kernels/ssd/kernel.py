@@ -2,17 +2,26 @@
 
 Replaces the JAX package's Pallas kernel ``kernels/ssd/kernel.py``
 ``ssd_scan``, at the call site of its XLA twin ``kernels/ssd/ops.py``
-``ssd_chunked``.  One 256-thread block per head walks its chunks in order
-with the [P, N] float32 state in shared memory; bound by operations (see
-the note at the top of the CUDA source).
+``ssd_chunked``.  Every accepted form runs on ``wgmma``: a head is split
+across blocks along P (``P_SPLIT`` columns each), each block walks the
+head's chunks of ``CHUNK`` steps with its slice of the float32 state in
+registers, and every product is a bf16 tensor-core product with float32
+accumulation, an operand that holds float32 digits split into a bf16 hi and
+lo part (three passes).  The function is bound by bytes; the three passes
+make the kernel's own work larger (see the note at the top of the CUDA
+source).  ``plan`` says how a call runs.
 
 Contract: ``ssd_scan(x, dt, a, b, c, return_state=)`` for x [BH, S, P]
-(float32 or bfloat16), dt [BH, S], a [BH] and b/c [G, S, N] float32 (G
-divides BH; row g serves heads g·BH/G .. (g+1)·BH/G - 1), all contiguous on
-one CUDA device, P in 32/64/128 and N in 16/32/64/128, gives y [BH, S, P] in
-x's dtype (and the final state [BH, P, N] float32), equal to
-``ref.ssd_chunked_ref`` up to float32 rounding.  ``LAUNCHES`` counts the
-launches of this process.
+(float32 or bfloat16), dt [BH, S] and a [BH] float32, and b/c [G, S, N]
+both float32 or both bfloat16 (G divides BH; row g serves heads
+g·BH/G .. (g+1)·BH/G - 1), all contiguous on one CUDA device, x starting on
+a 16-byte boundary, P in 32/64/128, N in 16/32/64/128 and any S, gives y
+[BH, S, P] in x's dtype (and the final state [BH, P, N] float32), equal to
+``ref.ssd_chunked_ref`` (on b and c as float32) up to float32 rounding.
+B and C in bfloat16 are exact in one bf16 pass, so they are read as they
+come.  A call is three launches on its stream: ``ssd_split_bc`` (B and C
+as bf16 planes), ``ssd_chunk_vec`` (each chunk's scan of dt a) and the scan
+``ssd_wgmma``.  ``LAUNCHES`` counts calls, one for each such triple.
 """
 
 from __future__ import annotations
@@ -23,17 +32,48 @@ import torch
 
 from ..build import check_launch, check_tensor, library
 
-__all__ = ["LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "ssd_scan"]
+__all__ = ["LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "CHUNK", "P_SPLIT", "ssd_scan",
+           "plan", "wgmma_smem"]
 
-#: kernel launches since the counter was last reset (``chip_smoke.py`` sets
-#: it to 0 before the main path and reads it after)
+#: calls that launched the kernels (three launches each) since the counter
+#: was last reset (``chip_smoke.py`` sets it to 0 before the main path and
+#: reads it after)
 LAUNCHES = 0
 HEAD_DIMS = (32, 64, 128)
 STATE_DIMS = (16, 32, 64, 128)
+#: steps per chunk: one 64-row wgmma tile
+CHUNK = 64
+#: columns of P a block takes (``PS`` in the CUDA source; 16 measured
+#: slower at mamba2-780m's prefill, PERF.md)
+P_SPLIT = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def plan(dtype: torch.dtype, p: int, n: int, bc_dtype: torch.dtype = torch.float32) -> dict:
+    """How the kernel runs x [.., P] of ``dtype`` with B/C of ``bc_dtype``
+    and state dim ``n``: the P split (columns per block, blocks per head),
+    the chunk, threads, ring stages, the state's rows (N padded to 64 for
+    wgmma's M side), whether B/C are split into hi/lo, and the dynamic
+    shared memory in bytes, as ``csrc/ssd.cu``'s ``Cfg`` sets it."""
+    nw = max(n, 64)
+    split = bc_dtype == torch.float32
+    item = 4 if dtype == torch.float32 else 2
+    # a stage: the B/C planes, the raw x slice, the chunk's four [CHUNK]
+    # float vectors (cum, dt, e^cum, w)
+    stage = ((4 if split else 2) * CHUNK * nw * 2 + CHUNK * P_SPLIT * item
+             + 4 * CHUNK * 4)
+    stages = 2 if split else 1                     # the ring (``Cfg::STAGES``)
+    x_tiles = (2 if item == 4 else 1) + 2          # x hi (, lo), x o w hi, lo
+    # 1,024 bytes to align the tiles, the ring, the x-side tiles, the state's
+    # hi/lo tiles, one mbarrier a stage
+    smem = (1024 + stages * stage + x_tiles * P_SPLIT * 128 + 2 * P_SPLIT * nw * 2
+            + 8 * stages)
+    return {"p_split": P_SPLIT, "blocks_per_head": p // P_SPLIT,
+            "chunk": CHUNK, "threads": 128, "stages": stages, "state_rows": nw,
+            "bc_split": split, "smem": smem}
 
 
 def _lib():
@@ -41,10 +81,19 @@ def _lib():
     if not getattr(lib, "_spac_typed", False):
         for sfx in _SUFFIX.values():
             fn = getattr(lib, "ssd_scan_" + sfx)
-            fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
             fn.restype = ctypes.c_int
+        lib.ssd_scan_smem.argtypes = [_I, _I, _I]
+        lib.ssd_scan_smem.restype = ctypes.c_int
         lib._spac_typed = True
     return lib
+
+
+def wgmma_smem(dtype: torch.dtype, n: int, bc_dtype: torch.dtype = torch.float32) -> int:
+    """The dynamic shared memory the built kernel sets (builds the library;
+    ``plan`` must agree)."""
+    return int(_lib().ssd_scan_smem(int(dtype == torch.bfloat16),
+                                    int(bc_dtype == torch.bfloat16), n))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -58,9 +107,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("x must be [BH, S, P] and b/c [G, S, N]")
     bh, s, p = x.shape
     g, n = b.shape[0], b.shape[-1]
-    if x.dtype not in _SUFFIX:
-        raise ValueError(f"x has dtype {x.dtype}; the kernel takes float32 or "
-                         "bfloat16")
+    if x.dtype not in _SUFFIX or b.dtype not in _SUFFIX:
+        raise ValueError(f"x has dtype {x.dtype} and b {b.dtype}; the kernel takes "
+                         "float32 or bfloat16")
     if p not in HEAD_DIMS or n not in STATE_DIMS:
         raise ValueError(f"P={p}, N={n}: the kernel takes P in {HEAD_DIMS} and "
                          f"N in {STATE_DIMS}")
@@ -70,19 +119,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     check_tensor(x, "x", x.dtype, (bh, s, p), dev)
     check_tensor(dt, "dt", torch.float32, (bh, s), dev)
     check_tensor(a, "a", torch.float32, (bh,), dev)
-    check_tensor(b, "b", torch.float32, (g, s, n), dev)
-    check_tensor(c, "c", torch.float32, (g, s, n), dev)
+    check_tensor(b, "b", b.dtype, (g, s, n), dev)
+    check_tensor(c, "c", b.dtype, (g, s, n), dev)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (TMA loads it)")
     y = torch.empty_like(x)
     state = (torch.zeros((bh, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
     if x.numel():
+        bc_bf16 = b.dtype == torch.bfloat16
+        # scratch: B and C as bf16 planes (hi, and lo where float32), N
+        # padded to 64; then each chunk's four [CHUNK] float vectors
+        planes = (2 if bc_bf16 else 4) * g * s * max(n, 64) * 2
+        scratch = torch.empty(planes + bh * -(-s // CHUNK) * 4 * CHUNK * 4,
+                              dtype=torch.uint8, device=dev)
         fn = getattr(_lib(), "ssd_scan_" + _SUFFIX[x.dtype])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                       c.data_ptr(), y.data_ptr(),
-                      state.data_ptr() if return_state else None,
-                      bh, s, p, n, bh // g, stream)
+                      state.data_ptr() if return_state else None, scratch.data_ptr(),
+                      bh, s, p, n, bh // g, int(bc_bf16), stream)
         check_launch(code, "ssd_scan")
         LAUNCHES += 1
     return (y, state) if return_state else y

@@ -3,7 +3,9 @@
 Device policy for ``ssd_chunked``: CUDA tensors launch the hand-written
 kernel (``kernel.ssd_scan``, which picks its own chunk), CPU tensors take
 the plain version (``ref.ssd_chunked_ref`` at ``chunk``); there is no
-fallback from one to the other.
+fallback from one to the other.  B and C go to the kernel in their own
+dtype where both are float32 or both bfloat16 (the bf16 model's are bf16,
+exact in one bf16 pass), else as float32.
 
 B and C may come per head ([BH, S, N], as in the reference) or per group of
 heads ([G, S, N], G dividing BH, row g serving the BH/G consecutive heads of
@@ -37,9 +39,13 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, return_state: bool = False)
         return ssd_chunked_ref(x, dt, a, _per_head(b, bh), _per_head(c, bh),
                                chunk=chunk, return_state=return_state)
     f32 = torch.float32
-    return kernel.ssd_scan(x.contiguous(), dt.to(f32).contiguous(),
-                           a.to(f32).contiguous(), b.to(f32).contiguous(),
-                           c.to(f32).contiguous(), return_state=return_state)
+    if not (b.dtype == c.dtype and b.dtype in (f32, torch.bfloat16)):
+        b, c = b.to(f32), c.to(f32)
+    x = x.contiguous()
+    if x.data_ptr() % 16:                   # TMA reads x from a 16-byte boundary
+        x = x.clone()
+    return kernel.ssd_scan(x, dt.to(f32).contiguous(), a.to(f32).contiguous(),
+                           b.contiguous(), c.contiguous(), return_state=return_state)
 
 
 def ssd_decode_step(state, x_t, dt_t, a, b_t, c_t):

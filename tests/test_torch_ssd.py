@@ -17,11 +17,18 @@ Contract, on the CPU with the plain PyTorch versions, on inputs made with
 - ``apply_mamba`` (with its decode state) at 1e-4 of its scale and
   ``decode_mamba`` at 1e-5 against the reference's, in float32.
 
-The CUDA kernel runs only on a card: the ``cuda``-marked test skips here
+The CUDA kernel runs only on a card: the ``cuda``-marked tests skip here
 (``python3 chip_smoke.py`` holds it against the plain version on the card).
+What the CPU can check of it: its precision scheme (bf16 hi/lo operands,
+three products, float32 sums, at the chunk and P split of ``kernel.plan``),
+emulated here on ``chip_smoke.py``'s input distributions and held against
+``ssd_chunked_ref`` at the kernel's bars; and its launch plan (shared memory
+within ``build.MAX_SMEM_BYTES``, the grid covering BH x P).
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.experimental
@@ -45,6 +52,7 @@ from repro.models import mamba2 as RM  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.kernels.build import MAX_SMEM_BYTES  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.models import mamba2 as PM  # noqa: E402
 
@@ -228,3 +236,169 @@ def test_cuda_kernel_vs_plain(dtype):
         torch.testing.assert_close(y.float(), wy.float(), atol=2e-3 if dtype == "f32" else 2e-2,
                                    rtol=2e-3 if dtype == "f32" else 2e-2)
         torch.testing.assert_close(st, wst, atol=2e-3, rtol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# the kernel's precision scheme and launch plan, on the CPU
+# --------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library only)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _mm(a, b, a_exact, b_exact):
+    """a @ b (batched) as the kernel's wgmma passes take it: an operand that
+    holds float32 digits is split into bf16 hi and lo, and the product is
+    hi.hi + hi.lo + lo.hi, each exact in float32 and summed in float32; an
+    operand that is bf16 already takes one pass."""
+    ah, al = (a, None) if a_exact else (_bf(a), _bf(a - _bf(a)))
+    bh, bl = (b, None) if b_exact else (_bf(b), _bf(b - _bf(b)))
+    out = ah @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    if al is not None:
+        out = out + al @ bh
+    return out
+
+
+def _emulate_kernel(x, dt, a, b, c, heads):
+    """``csrc/ssd.cu``'s arithmetic in float32 on the CPU: per head and slice
+    of P (``kernel.plan``'s split), chunks of ``kernel.plan``'s length, the
+    ragged tail zero; G = C.B^T, M masked before the exponential, Y = M.x,
+    Yi = C.state^T scaled by exp(cum) after, the state carried transposed
+    and decayed before B^T.(x o w) is added.  Returns y (float32) and the
+    final state."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    x_exact = x.dtype == torch.bfloat16
+    bc_exact = b.dtype == torch.bfloat16
+    pl = ssd_kernel.plan(x.dtype, p, n, b.dtype)
+    L, ps = pl["chunk"], pl["p_split"]
+    nc = -(-s // L)
+    pad = nc * L - s
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, pad))
+    bf = torch.nn.functional.pad(b.float(), (0, 0, 0, pad)).repeat_interleave(heads, 0)
+    cf = torch.nn.functional.pad(c.float(), (0, 0, 0, pad)).repeat_interleave(heads, 0)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    y = torch.zeros((bh, nc * L, p))
+    state = torch.zeros((bh, p, n))
+    for p0 in range(0, p, ps):
+        st_t = torch.zeros((bh, n, ps))                  # state^T slice
+        for i in range(nc):
+            rows = slice(i * L, (i + 1) * L)
+            xs, d = xf[:, rows, p0:p0 + ps], dtf[:, rows]
+            bb, cc = bf[:, rows], cf[:, rows]
+            cum = torch.cumsum(d * a[:, None], dim=-1)
+            total = cum[:, -1:]
+            g = _mm(cc, bb.transpose(1, 2), bc_exact, bc_exact)
+            diff = torch.where(mask, cum[:, :, None] - cum[:, None, :], 0.0)
+            m = torch.where(mask, g * torch.exp(diff) * d[:, None, :], 0.0)
+            yv = _mm(m, xs, False, x_exact)
+            yi = _mm(cc, st_t, bc_exact, False)
+            y[:, rows, p0:p0 + ps] = yv + torch.exp(cum)[:, :, None] * yi
+            xw = xs * (torch.exp(total - cum) * d)[:, :, None]
+            st_t = st_t * torch.exp(total)[:, :, None] + _mm(bb.transpose(1, 2), xw,
+                                                             bc_exact, False)
+        state[:, p0:p0 + ps] = st_t.transpose(1, 2)
+    return y[:, :s], state
+
+
+@pytest.mark.parametrize("bc", ["f32", "bf16"])
+@pytest.mark.parametrize("xt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("p", [32, 64, 128])
+def test_kernel_precision_scheme_within_the_bars(p, n, xt, bc):
+    """The split-bf16 scheme keeps float32's digits: on chip_smoke.py's
+    inputs (a = -1, dt = softplus(N): a chunk's log-decay passes -88) at a
+    ragged S = 1,000, the emulated kernel is within atol = rtol = 2e-3 of the
+    plain version (float32 x), or within atol 2e-3 and rtol 2**-8 once y is
+    rounded to bfloat16 (bfloat16 x); the final state within 2e-3."""
+    heads, bh, s = 2, 4, 1000
+    x, dt, a, b, c = _chip_smoke()._ssd_inputs(bh, heads, s, p, n, "cpu", seed=p + n)
+    if xt == "bf16":
+        x = x.to(torch.bfloat16)
+    if bc == "bf16":
+        b, c = b.to(torch.bfloat16), c.to(torch.bfloat16)
+    assert float((dt[:, :64] * a[:, None]).sum(-1).max()) < -20
+    y, st = _emulate_kernel(x, dt, a, b, c, heads)
+    want_y, want_st = ssd.ssd_chunked_ref(
+        x.float(), dt, a, b.float().repeat_interleave(heads, 0),
+        c.float().repeat_interleave(heads, 0), chunk=200, return_state=True)
+    if xt == "f32":
+        torch.testing.assert_close(y, want_y, atol=2e-3, rtol=2e-3)
+    else:
+        torch.testing.assert_close(y.to(torch.bfloat16).float(), want_y, atol=2e-3,
+                                   rtol=2.0 ** -8)
+    torch.testing.assert_close(st, want_st, atol=2e-3, rtol=2e-3)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("bc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_fits_and_covers_the_grid(dtype, bc):
+    """Every accepted (x dtype, B/C dtype, P, N): the shared memory within
+    what a block may use, blocks that cover P, and a state of at least 64
+    rows (wgmma's M side)."""
+    for p in ssd_kernel.HEAD_DIMS:
+        for n in ssd_kernel.STATE_DIMS:
+            plan = ssd_kernel.plan(dtype, p, n, bc)
+            assert plan["chunk"] == 64
+            assert 0 < plan["smem"] <= MAX_SMEM_BYTES
+            assert plan["blocks_per_head"] * plan["p_split"] == p
+            assert plan["state_rows"] == max(n, 64)
+            assert plan["bc_split"] == (bc == torch.float32)
+            assert plan["threads"] == 128
+
+
+def test_chip_smoke_forms_are_accepted_and_split():
+    """chip_smoke.py's SSD forms (mamba2-780m's and hymba-1.5b's shapes, a
+    ragged length) are all accepted by the kernel and planned with at least
+    two blocks a head."""
+    for shape, heads, bh, s, p, n, chunk in _chip_smoke().SSD_FORMS:
+        assert p in ssd_kernel.HEAD_DIMS and n in ssd_kernel.STATE_DIMS
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = ssd_kernel.plan(dtype, p, n)
+            assert plan["blocks_per_head"] >= 2, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", ["f32", "bf16"])
+@pytest.mark.parametrize("xt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("p", [32, 64, 128])
+def test_cuda_kernel_matrix_vs_plain(p, n, xt, bc):
+    """The kernel against the plain version over the emulation's matrix, at
+    a ragged S and with B/C per group of heads, at the kernel's bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    dev = torch.device("cuda")
+    heads, bh = 2, 4
+    for s in (1000, 57):
+        x, dt, a, b, c = _chip_smoke()._ssd_inputs(bh, heads, s, p, n, dev, seed=s + n)
+        if xt == "bf16":
+            x = x.to(torch.bfloat16)
+        if bc == "bf16":
+            b, c = b.to(torch.bfloat16), c.to(torch.bfloat16)
+        n0 = ssd_kernel.LAUNCHES
+        y, st = ssd_kernel.ssd_scan(x, dt, a, b, c, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_kernel.LAUNCHES == n0 + 1
+        wy, wst = ssd.ssd_chunked_ref(
+            x.float(), dt, a, b.float().repeat_interleave(heads, 0),
+            c.float().repeat_interleave(heads, 0), chunk=s, return_state=True)
+        torch.testing.assert_close(y.float(), wy, atol=2e-3,
+                                   rtol=2e-3 if xt == "f32" else 2.0 ** -8)
+        torch.testing.assert_close(st, wst, atol=2e-3, rtol=2e-3)
+        assert ssd_kernel.wgmma_smem(x.dtype, n, b.dtype) == ssd_kernel.plan(
+            x.dtype, p, n, b.dtype)["smem"]
