@@ -45,6 +45,25 @@
 // key, exp(-1e30 - -1e30), as the reference's is; 2^(x c - m c) would leave
 // the rounding error of m c (~1e22) in the exponent there.
 //
+// The first query rows (the first wgmma block's worth: 192 at D 64, 128 at
+// D 128) run on the FMA path instead, at the wgmma path's 128-key tiles
+// (flash_fwd<bf16, D, 128>, a launch before the wgmma one).  A row that
+// sees few keys has a small l, so one P rounded to the other bf16 neighbour
+// moves its output by up to ~2^-8 |v| / l, more than the bar allows: a
+// one-ulp difference in one float32 score (wgmma sums a row's products in
+// another order than a sequential float32 sum) is enough where p lies on a
+// bf16 rounding tie (gqa_d128 seed 17, row 30: the row max one ulp lower,
+// p = 0.798828125 + 1 ulp instead of the tie, found by dumping that row's
+// intermediates tile by tile beside the plain version's).
+// The FMA path sums each score over D in order with fmaf, which is what the
+// plain version's float32 product gives (the dump found no score of 10.5
+// million that differs), and forms p = expf(x * scale - m), as the plain
+// version does, so those rows' P are the plain version's bit for bit.  Past
+// the first block l is large enough that a flipped P stays inside the bar
+// (the seed sweep's worst share 0.66-0.78 with this, 0.94-1.06 without).
+// It costs ~0.08 ms a call at llama3.2-1b's prefill (2.68-2.69 -> 2.77-2.78
+// ms on one H100, tests/torch_scan_ab.py against the tree before it).
+//
 // Where the design met trouble:
 //   - TMA from a ctypes library: cuTensorMapEncodeTiled is a driver call and
 //     the build links no libcuda; the runtime's cudaGetDriverEntryPoint hands
@@ -73,6 +92,7 @@
 //     is issued before tile j's P.V is done, so the loop does not: with
 //     three consumer warpgroups a consumer has 160 registers.
 
+#include <algorithm>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,10 +103,9 @@
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx 4 keys / D/16 columns
+constexpr int BK = 64;          // keys per tile (the float32 and D 32 paths)
+constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx KT/16 keys / D/16 columns
 constexpr int QS = BQ + 4;      // padded strides (float4-aligned)
-constexpr int KS = BK + 4;
 constexpr int PS = BQ + 1;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
@@ -115,23 +134,28 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int D>
+template <int D, int KT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(D) * QS + size_t(D) * KS + size_t(BK) * D + size_t(BK) * PS);
+  return sizeof(float) * (size_t(D) * QS + size_t(D) * (KT + 4) + size_t(KT) * D +
+                          size_t(KT) * PS);
 }
 
-template <typename T, int D>
+// KT keys per tile: BK on the float32 and D 32 paths, the wgmma path's 128
+// for its first query rows (below)
+template <typename T, int D, int KT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int hq, int hkv, int s, int t, float scale,
           int causal, int window) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DC = D / 16;                      // output columns per thread
+  constexpr int KPT = KT / 16;                    // keys per thread
+  constexpr int KS = KT + 4;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);    // [D][QS]  q transposed
   float* kt = qt + D * QS;                        // [D][KS]  k transposed
-  float* vs = kt + D * KS;                        // [BK][D]
-  float* pt = vs + BK * D;                        // [BK][PS] p transposed
+  float* vs = kt + D * KS;                        // [KT][D]
+  float* pt = vs + KT * D;                        // [KT][PS] p transposed
 
   const int bh = blockIdx.y;
   const int b = bh / hq, h = bh - b * hq;
@@ -160,16 +184,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int off = t - s;
   const int row_lo = q0 + off;                       // absolute row of the first query
   const int row_hi = min(q0 + BQ, s) - 1 + off;
-  int j_lo = 0, j_hi = (t + BK - 1) / BK - 1;
+  int j_lo = 0, j_hi = (t + KT - 1) / KT - 1;
   if (row_lo >= 0) {                                 // every row sees some key
-    if (causal) j_hi = min(j_hi, row_hi / BK);
-    if (window > 0 && row_lo - window + 1 > 0) j_lo = (row_lo - window + 1) / BK;
+    if (causal) j_hi = min(j_hi, row_hi / KT);
+    if (window > 0 && row_lo - window + 1 > 0) j_lo = (row_lo - window + 1) / KT;
   }
 
   for (int j = j_lo; j <= j_hi; ++j) {
-    const int c0 = j * BK;
+    const int c0 = j * KT;
     __syncthreads();                                 // the last tile's reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < KT * D; i += THREADS) {
       const int c = i / D, d = i - c * D;
       const bool in = c0 + c < t;
       kt[d * KS + c] = in ? to_f(kp[(size_t)(c0 + c) * D + d]) : 0.f;
@@ -177,20 +201,28 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
     __syncthreads();
 
-    float sc[4][4];
+    float sc[4][KPT];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
+      for (int jj = 0; jj < KPT; ++jj) sc[i][jj] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(&qt[d * QS + ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&kt[d * KS + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      float bv[KPT];
+#pragma unroll
+      for (int v4 = 0; v4 < KPT / 4; ++v4) {
+        const float4 bb = *reinterpret_cast<const float4*>(&kt[d * KS + tx * KPT + 4 * v4]);
+        bv[4 * v4] = bb.x;
+        bv[4 * v4 + 1] = bb.y;
+        bv[4 * v4 + 2] = bb.z;
+        bv[4 * v4 + 3] = bb.w;
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = fmaf(av[i], bv[jj], sc[i][jj]);
+        for (int jj = 0; jj < KPT; ++jj) sc[i][jj] = fmaf(av[i], bv[jj], sc[i][jj]);
     }
 
 #pragma unroll
@@ -198,8 +230,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int row = q0 + ty * 4 + i + off;
       float mx = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = c0 + tx * 4 + jj;
+      for (int jj = 0; jj < KPT; ++jj) {
+        const int col = c0 + tx * KPT + jj;
         float x = sc[i][jj] * scale;
         if (col >= t) {
           x = -INFINITY;                             // padding: p = 0 exactly
@@ -214,10 +246,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const float alpha = expf(m[i] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KPT; ++jj) {
         const float p = expf(sc[i][jj] - m_new);
         ps += p;
-        pt[(tx * 4 + jj) * PS + ty * 4 + i] = round_to<T>(p);
+        pt[(tx * KPT + jj) * PS + ty * 4 + i] = round_to<T>(p);
       }
       l[i] = l[i] * alpha + row_sum16(ps);
       m[i] = m_new;
@@ -227,7 +259,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < KT; ++kk) {
       float p[4], vv[DC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = pt[kk * PS + ty * 4 + i];
@@ -714,7 +746,7 @@ template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int hq,
-            int hkv, int s, int t, float c, int causal, int window) {
+            int hkv, int s, int t, float c, int causal, int window, int q_base) {
   constexpr int NS = C::NS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;   // 1,024-aligned tiles
@@ -723,7 +755,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const int bh = blockIdx.y;
   const int b = bh / hq, h = bh - b * hq;
   const int kvh = b * hkv + h / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;       // heaviest tiles first
+  const int q0 = q_base + (gridDim.x - 1 - blockIdx.x) * C::BQ;   // heaviest first
   int jlo, jhi;                                     // the block's key tiles
   tile_range(q0 + t - s, min(q0 + C::BQ, s) - 1 + t - s, t, C::BK, causal, window, jlo,
              jhi);
@@ -806,9 +838,11 @@ bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int heads, i
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// query rows q_base .. s - 1 (rows before q_base are the FMA path's)
 template <class C>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-           int s, int t, float scale, int causal, int window, cudaStream_t stream) {
+           int s, int t, float scale, int causal, int window, int q_base,
+           cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return int(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
@@ -820,26 +854,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        C::SMEM);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((s + C::BQ - 1) / C::BQ, b * hq);
+  const dim3 grid((s - q_base + C::BQ - 1) / C::BQ, b * hq);
   flash_wgmma<C><<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, s, t, scale * LOG2E, causal,
-      window);
+      window, q_base);
   return int(cudaGetLastError());
 }
 
 }  // namespace wg
 
-template <typename T, int D>
+// query rows 0 .. rows - 1 on the FMA pipes, KT keys per tile
+template <typename T, int D, int KT = BK>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b, int hq,
              int hkv, int s, int t, float scale, int causal, int window,
-             cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd<T, D>,
+             cudaStream_t stream, int rows) {
+  const size_t smem = smem_bytes<D, KT>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd<T, D, KT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((s + BQ - 1) / BQ, b * hq);
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((rows + BQ - 1) / BQ, b * hq);
+  flash_fwd<T, D, KT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), hq, hkv, s, t, scale, causal, window);
   return int(cudaGetLastError());
@@ -853,11 +888,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
   if (hkv <= 0 || hq % hkv != 0 || b * hq > 65535) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_d<T, 32>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
-    case 64: return launch_d<T, 64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
-    case 128: return launch_d<T, 128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
+    case 32: return launch_d<T, 32>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
+    case 64: return launch_d<T, 64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
+    case 128:
+      return launch_d<T, 128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// bf16 at D 64 or 128: the first wgmma block's rows on the FMA pipes at the
+// wgmma path's key tile (see the note at the top; kernel.py's plan() names
+// them fma_rows), the rest on wgmma
+template <class C>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                int hkv, int s, int t, float scale, int causal, int window,
+                cudaStream_t st, int* wgmma) {
+  const int head = std::min(s, int(C::BQ));
+  if (head > 0) {
+    const int e = launch_d<__nv_bfloat16, C::D, C::BK>(q, k, v, o, b, hq, hkv, s, t, scale,
+                                                       causal, window, st, head);
+    if (e != 0 || head == s) return e;
+  }
+  const int e = wg::launch<C>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, head, st);
+  *wgmma = e == 0;
+  return e;
 }
 
 }  // namespace
@@ -882,12 +936,10 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, i
   if (b > 0 && s > 0 && t > 0 && hkv > 0 && hq % hkv == 0 && b * hq <= 65535 &&
       (d == 64 || d == 128)) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int e =
-        d == 64
-            ? wg::launch<wg::Cfg64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st)
-            : wg::launch<wg::Cfg128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st);
-    *wgmma = e == 0;
-    return e;
+    return d == 64 ? launch_bf16<wg::Cfg64>(q, k, v, o, b, hq, hkv, s, t, scale, causal,
+                                            window, st, wgmma)
+                   : launch_bf16<wg::Cfg128>(q, k, v, o, b, hq, hkv, s, t, scale, causal,
+                                             window, st, wgmma);
   }
   return launch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, t, d, scale, causal, window,
                                stream);

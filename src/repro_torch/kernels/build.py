@@ -29,7 +29,7 @@ from typing import Dict, Sequence
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "MAX_SMEM_BYTES", "library",
-           "build_all", "check_launch", "check_tensor"]
+           "build_all", "check_launch", "check_ports", "check_tensor"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -129,3 +129,13 @@ def check_tensor(x: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_ports(src: torch.Tensor, dst: torch.Tensor, n_ports: int) -> None:
+    """Raise unless every port id in ``src`` and ``dst`` lies in
+    [0, n_ports).  The four extrema come back in one device-to-host copy."""
+    ext = torch.stack([*torch.aminmax(src), *torch.aminmax(dst)])
+    lo_s, hi_s, lo_d, hi_d = ext.tolist()
+    lo, hi = min(lo_s, lo_d), max(hi_s, hi_d)
+    if lo < 0 or hi >= n_ports:
+        raise ValueError(f"port ids must lie in [0, {n_ports}), got [{lo}, {hi}]")

@@ -5,9 +5,11 @@ Replaces the JAX package's Pallas kernel
 site of its XLA twin ``models/attention.py`` ``blockwise_attention``.  Two
 paths, bound by operations (see the note at the top of the CUDA source):
 bfloat16 with D 64/128 on ``wgmma`` with TMA loads, 192 (D 64) or 128
-(D 128) query rows per block and ``KEY_TILE`` keys per tile; float32, and
-D 32, on the float32 FMA pipes, 64 query rows and 64 keys per tile.  ``plan`` says which path a call
-takes.
+(D 128) query rows per block and ``KEY_TILE`` keys per tile, its first
+block's rows on the FMA pipes at the same key tile (so that rows which see
+few keys round P as the plain version does); float32, and D 32, on the
+float32 FMA pipes, 64 query rows and 64 keys per tile.  ``plan`` says
+which path a call takes.
 
 Contract: ``flash_attention(q, k, v, causal=, window=)`` for q
 [B, Hq, S, D] and k/v [B, Hkv, T, D] (float32 or bfloat16, contiguous, on
@@ -53,16 +55,18 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def plan(dtype: torch.dtype, d: int, s: int) -> dict:
     """How the kernel runs ``q`` [.., S, D] of ``dtype``: its path (``"wgmma"`` or ``"fma"``), query rows per block,
     keys per tile, threads per block, dynamic shared memory in bytes, and
-    blocks per head."""
+    blocks per head; on the ``wgmma`` path also ``fma_rows``, the leading
+    query rows (the first block's) that run on the FMA pipes at the same
+    key tile (where S is no more than those, the call is all FMA)."""
     if dtype == torch.bfloat16 and d in _WGMMA:
         nwg, stages = _WGMMA[d]
         block_q = 64 * nwg
         # 1,024 bytes to align the swizzled tiles, Q, the K/V ring, mbarriers
         smem = (1024 + block_q * d * 2 + stages * 2 * KEY_TILE * d * 2
                 + 8 * (2 * stages + 1))
-        return {"path": "wgmma", "block_q": block_q, "key_tile": KEY_TILE,
-                "threads": 128 * (nwg + 1), "stages": stages, "smem": smem,
-                "blocks": -(-s // block_q)}
+        return {"path": "wgmma" if s > block_q else "fma", "block_q": block_q,
+                "key_tile": KEY_TILE, "threads": 128 * (nwg + 1), "stages": stages,
+                "smem": smem, "blocks": -(-s // block_q), "fma_rows": min(s, block_q)}
     # float32 q^T, k^T (padded strides), v, and p^T (padded)
     smem = 4 * (d * 68 + d * 68 + 64 * d + 64 * 65)
     return {"path": "fma", "block_q": 64, "key_tile": 64, "threads": 256,

@@ -4,15 +4,21 @@ Replaces the JAX package's Pallas tile ``kernels/netsim/kernel.py``
 (``netsim_replay_padded``) and the float64 ``lax.scan`` twins stage 4 runs:
 round 1's ungated replay (``kernels/netsim/ops.py:_round1_body``) and the
 gated replay of later rounds (``kernels/netsim/ref.py:netsim_replay_abs_ref``).
-One candidate row per warp, port state in shared memory; bound by the
-m-step dependent chain, not by bandwidth (see the CUDA source's note).
+One candidate row per warp (``csrc/port_scan.cuh``, shared with the
+crossbar scan): the absolute forms run each 32-event group by levels of its
+dependency graph, the slack form one event a step with lane p holding port
+p in registers; bound by the dependent chain, not by bandwidth (see the
+CUDA source's note).
 
 Contract: ``tnow`` [m] (absolute switch-arrival times for ``absolute=True``
 in float64, inter-arrival gaps for the float32 slack form), ``src``/``dst``
 [m] int32, ``svc_t`` [m, B], ``pipe`` [B], ``admit_t`` [m, B] uint8 or None
 (ungated: every event admitted; the slack form is always gated) → ``[B, m]``
 departure times (absolute) or offsets (slack), bitwise equal to ``ref.py``.
-``LAUNCHES`` counts the kernel launches of this process.
+``LAUNCHES`` counts the kernel launches of this process.  ``chain_step``
+runs one form's step alone, ``steps`` times in a dependent chain on one
+thread (for the chain bound ``chip_smoke.py`` reports); it is not the
+replay and is not counted.
 """
 
 from __future__ import annotations
@@ -22,9 +28,9 @@ from typing import Optional
 
 import torch
 
-from ..build import MAX_SMEM_BYTES, check_launch, check_tensor, library
+from ..build import MAX_SMEM_BYTES, check_launch, check_ports, check_tensor, library
 
-__all__ = ["LAUNCHES", "netsim_replay"]
+__all__ = ["LAUNCHES", "chain_step", "netsim_replay"]
 
 #: kernel launches since the counter was last reset (``chip_smoke.py`` sets
 #: it to 0 before the main path and reads it after)
@@ -46,6 +52,8 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.netsim_smem_bytes.argtypes = [_I, _I]
         lib.netsim_smem_bytes.restype = ctypes.c_longlong
+        lib.netsim_chain.argtypes = [_I, _P, _I, _P]
+        lib.netsim_chain.restype = ctypes.c_int
         lib._spac_typed = True
     return lib
 
@@ -79,10 +87,7 @@ def netsim_replay(tnow: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     out = torch.empty((b, m), dtype=dtype, device=dev)
     if m == 0 or b == 0:
         return out
-    lo = int(torch.minimum(src.min(), dst.min()))
-    hi = int(torch.maximum(src.max(), dst.max()))
-    if lo < 0 or hi >= n_ports:
-        raise ValueError(f"port ids must lie in [0, {n_ports}), got [{lo}, {hi}]")
+    check_ports(src, dst, n_ports)
     lib = _lib()
     smem = lib.netsim_smem_bytes(n_ports, dtype.itemsize)
     if smem > MAX_SMEM_BYTES:
@@ -104,3 +109,20 @@ def netsim_replay(tnow: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     check_launch(code, "netsim_replay")
     LAUNCHES += 1
     return out
+
+
+def chain_step(io: torch.Tensor, steps: int, *, absolute: bool,
+               decay_only: bool = False) -> None:
+    """``steps`` dependent steps of the absolute (float64) or slack
+    (float32) form on one thread of ``io``'s device, in place: ``io`` [5]
+    holds x0, o, now (dnow), pipe, s; ``io[0]`` gets the result.
+    ``decay_only`` runs the slack form's per-event decay alone."""
+    if absolute and decay_only:
+        raise ValueError("the absolute form has no decay")
+    dtype = torch.float64 if absolute else torch.float32
+    check_tensor(io, "io", dtype, (5,), io.device)
+    with torch.cuda.device(io.device):
+        stream = torch.cuda.current_stream(io.device).cuda_stream
+        form = 2 if decay_only else int(absolute)
+        code = _lib().netsim_chain(form, io.data_ptr(), steps, stream)
+    check_launch(code, "netsim_chain")

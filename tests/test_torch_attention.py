@@ -338,6 +338,15 @@ def test_blockwise_ref_at_key_tile_vs_pallas_and_twin(s, t, window):
         assert float(np.abs(_np(got16)[0] - _np(pal16)).max()) < 0.05
 
 
+@pytest.mark.parametrize("form", _chip_smoke().FLASH_CROSS_FORMS)
+def test_launch_plan_of_chip_smoke_cross_forms(form):
+    """chip_smoke.py's T > S forms have more query rows than the FMA head,
+    so they reach the wgmma kernel with the rows' offset T - S."""
+    _, _, _, s, t, d = form
+    plan = _check_plan(torch.bfloat16, d, s)
+    assert plan["path"] == "wgmma" and t > s > plan["fma_rows"] == plan["block_q"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_cuda_kernel_vs_plain(dtype):
@@ -345,14 +354,20 @@ def test_cuda_kernel_vs_plain(dtype):
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
     dev = torch.device("cuda")
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
-    for (s, t, window) in ((256, 256, 0), (200, 200, 64), (100, 300, 0)):
+    for (s, t, window) in ((256, 256, 0), (200, 200, 64), (100, 300, 0), (300, 500, 0)):
         for d in ((64,) if dtype == "f32" else (64, 128)):
             q, k, v = (_t(a, dt).to(dev) for a in _qkv(2, 8, 2, s, t, d, seed=s))
             n0, w0 = fa_kernel.LAUNCHES, fa_kernel.LAUNCHES_WGMMA
             got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             assert fa_kernel.LAUNCHES == n0 + 1
-            assert fa_kernel.LAUNCHES_WGMMA == w0 + (dtype == "bf16")
+            # the first wgmma block's rows run on the FMA pipes: a call with
+            # no more rows than that (S 100) launches no wgmma kernel; one
+            # with more launches it from that row on, with T > S at S 300
+            plan = fa_kernel.plan(dt, d, s)
+            wgmma = dtype == "bf16" and s > plan["block_q"]
+            assert plan["path"] == ("wgmma" if wgmma else "fma")
+            assert fa_kernel.LAUNCHES_WGMMA == w0 + wgmma
             if dtype == "f32":
                 want = fa.blockwise_ref(q, k, v, causal=True, window=window)
                 torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
@@ -372,8 +387,9 @@ def test_cuda_kernel_vs_plain(dtype):
 @pytest.mark.parametrize("form", _chip_smoke().FLASH_SEED_FORMS)
 def test_cuda_bf16_bar_over_seeds(form):
     """The bfloat16 kernel against the plain version at its key tiles over
-    chip_smoke.py's seeds 0-31, each inside the bar (atol 1e-3, rtol 2**-7)
-    but the confirmed fault in FLASH_SEED_FAULTS (ROADMAP queue 3)."""
+    chip_smoke.py's seeds 0-31, each inside the bar (atol 1e-3, rtol 2**-7),
+    every (form, seed) but those in FLASH_SEED_FAULTS (none since the
+    kernel's first block of rows runs on the FMA pipes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
     cs = _chip_smoke()

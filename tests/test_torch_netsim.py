@@ -10,7 +10,9 @@ reference's end times, admissions, convergence flags and round count; and
 reference's engines and to the serial ``run_netsim`` across the
 hft/datacenter × NXN/SHARED × depth 2/8/64 matrix, the shared-cap incast,
 degenerate depths and the empty trace.  The CUDA kernel runs only on a
-card: the ``cuda``-marked tests skip here.
+card: the ``cuda``-marked tests skip here (its bitwise matrix: all three
+forms, 4 to 300 ports, m 1 to 3,707, B 7 with a row admitting nothing and
+one admitting everything).
 """
 
 import jax
@@ -386,3 +388,56 @@ def test_cuda_kernel_bitwise_vs_plain(n_ports, form):
         want = port_ref.netsim_replay_slack_ref(tn, si, di, s, p, a,
                                                 n_ports=n_ports)
     assert torch.equal(got, want)
+
+
+MATRIX_PORTS = (4, 8, 32, 40, 300)
+MATRIX_M = (1, 31, 33, 530, 3707)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["ungated_f64", "gated_f64", "slack_f32"])
+@pytest.mark.parametrize("n_ports", MATRIX_PORTS)
+@pytest.mark.parametrize("m", MATRIX_M)
+def test_cuda_kernel_bitwise_matrix(m, n_ports, form):
+    """Register slots 1, 2 and shared-memory slots (300 ports), ragged
+    32-event groups, B 7 (not a multiple of a block's 4 rows), row 0
+    admitting no event and row 1 every event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    now, src, dst, svc, pipe, admit = _inputs(m + n_ports, m, 7, n_ports)
+    admit[0] = False
+    admit[1] = True
+    dev = torch.device("cuda")
+    absolute = form != "slack_f32"
+    dtype = torch.float64 if absolute else torch.float32
+    tn = torch.tensor(now if absolute else np.diff(now, prepend=0.0), dtype=dtype,
+                      device=dev)
+    s = torch.tensor(svc, dtype=dtype, device=dev)
+    p = torch.tensor(pipe, dtype=dtype, device=dev)
+    a = torch.tensor(admit, device=dev)
+    si, di = torch.tensor(src, device=dev), torch.tensor(dst, device=dev)
+    gated = form != "ungated_f64"
+    got = port_kernel.netsim_replay(
+        tn, si, di, s.t().contiguous(), p,
+        a.t().to(torch.uint8).contiguous() if gated else None,
+        n_ports=n_ports, absolute=absolute)
+    if absolute:
+        want = port_ref.netsim_replay_abs_ref(tn, si, di, s, p, a if gated else None,
+                                              n_ports=n_ports)
+    else:
+        want = port_ref.netsim_replay_slack_ref(tn, si, di, s, p, a, n_ports=n_ports)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_out_of_range_ports():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    now, src, dst, svc, pipe, _ = _inputs(7, 64, 3, 8)
+    dev = torch.device("cuda")
+    src[3] = -1
+    with pytest.raises(ValueError, match="port ids"):
+        port_kernel.netsim_replay(
+            torch.tensor(now, device=dev), torch.tensor(src, device=dev),
+            torch.tensor(dst, device=dev), torch.tensor(svc.T.copy(), device=dev),
+            torch.tensor(pipe, device=dev), None, n_ports=8, absolute=True)

@@ -8,7 +8,10 @@ in interpret mode (slack form), for 8 and 32 ports; ``run_surrogate_batched``
 on the CPU gives ``dep_end_s`` bitwise, ``q_occupancy`` exactly, quantiles
 and throughput equal to the reference's on hft and datacenter.  Inputs come
 from ``np.random.default_rng(seed)`` and go to both packages as NumPy.  The
-CUDA kernel itself runs only on a card: the ``cuda``-marked tests skip here.
+dependency depth the scans' chain bound uses (``kernels.chain``) is the
+longest path a brute force finds, and port ids out of range are refused.
+The CUDA kernel itself runs only on a card: the ``cuda``-marked tests skip
+here (its bitwise matrix: both forms, 4 to 300 ports, m 1 to 3,707, B 7).
 """
 
 import jax
@@ -41,6 +44,8 @@ from repro.sim import run_surrogate_batched as ref_batched  # noqa: E402
 from repro.traces import datacenter, hft  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.kernels.build import check_ports  # noqa: E402
+from repro_torch.kernels.chain import chain_depth  # noqa: E402
 from repro_torch.kernels.xbar import kernel as port_kernel  # noqa: E402
 from repro_torch.kernels.xbar import ref as port_ref  # noqa: E402
 from repro_torch.kernels.xbar import xbar_contend  # noqa: E402
@@ -122,6 +127,68 @@ def test_kernel_binding_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port_kernel.xbar_scan(_t(t), _t(src), _t(dst), _t(svc.T.copy()),
                               n_ports=8, absolute=True)
+
+
+def _brute_depth(src, dst, admit):
+    """The longest chain of a small timeline by enumeration: every
+    increasing sequence of events in which each reads what the one before
+    wrote (the last earlier admitted event with its source or its
+    destination), counted in events."""
+    m = len(src)
+    parents = []
+    for k in range(m):
+        ps = set()
+        for ports, p in ((src, src[k]), (dst, dst[k])):
+            w = [kk for kk in range(k) if ports[kk] == p and admit[kk]]
+            if w:
+                ps.add(w[-1])
+        parents.append(ps)
+    best = 0
+    for mask in range(1, 1 << m):
+        seq = [k for k in range(m) if mask >> k & 1]
+        if all(a in parents[b] for a, b in zip(seq, seq[1:])):
+            best = max(best, len(seq))
+    return best
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("gated", [False, True])
+def test_chain_depth_is_the_longest_path(seed, gated):
+    rng = np.random.default_rng(100 + seed)
+    m, n, b = 11, 2 + seed % 3, 3
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    admit = rng.random((b, m)) < 0.6 if gated else np.ones((b, m), bool)
+    want = max(_brute_depth(src, dst, row) for row in admit)
+    assert chain_depth(src, dst, admit if gated else None) == want
+    assert 1 <= want <= m
+    assert chain_depth(src[:0], dst[:0]) == 0
+
+
+def test_port_ids_out_of_range_are_refused():
+    ok = torch.tensor([0, 7, 3], dtype=torch.int32)
+    check_ports(ok, ok.flip(0), 8)
+    with pytest.raises(ValueError, match=r"\[0, 8\), got \[0, 8\]"):
+        check_ports(ok, torch.tensor([0, 8, 1], dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match=r"got \[-1, 7\]"):
+        check_ports(torch.tensor([-1, 2, 3], dtype=torch.int32), ok, 8)
+    with pytest.raises(ValueError, match=r"\[0, 7\), got \[0, 7\]"):
+        check_ports(ok, ok, 7)                  # the same ids, fewer ports
+    ok[1] = 9                                   # written after a check passed
+    with pytest.raises(ValueError, match=r"got \[0, 9\]"):
+        check_ports(ok, ok, 8)
+
+
+def test_port_ids_are_checked_under_inference_mode():
+    """Tensors made under torch.inference_mode() carry no version counter;
+    the check reads their values all the same."""
+    with torch.inference_mode():
+        ok = torch.tensor([0, 7, 3], dtype=torch.int32)
+        check_ports(ok, ok.flip(0), 8)
+        with pytest.raises(ValueError, match=r"got \[0, 8\]"):
+            check_ports(ok, ok + 1, 8)
+        with pytest.raises(ValueError, match=r"got \[-1, 7\]"):
+            check_ports(ok - 1, ok, 8)
 
 
 # --------------------------------------------------------------------------
@@ -229,3 +296,43 @@ def test_cuda_kernel_bitwise_vs_plain(n_ports, absolute):
     plain = (port_ref.xbar_contend_abs_ref if absolute
              else port_ref.xbar_contend_slack_ref)
     assert torch.equal(got, plain(tdt, si, di, s, n_ports=n_ports))
+
+
+MATRIX_PORTS = (4, 8, 32, 40, 300)
+MATRIX_M = (1, 31, 33, 530, 3707)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absolute", [True, False])
+@pytest.mark.parametrize("n_ports", MATRIX_PORTS)
+@pytest.mark.parametrize("m", MATRIX_M)
+def test_cuda_kernel_bitwise_matrix(m, n_ports, absolute):
+    """Register slots 1, 2 and shared-memory slots (300 ports), ragged
+    32-event groups, B 7 (not a multiple of a block's 4 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    t, dt, src, dst, svc = _inputs(m + n_ports, m, 7, n_ports)
+    dev = torch.device("cuda")
+    dtype = torch.float64 if absolute else torch.float32
+    tdt = torch.tensor(t if absolute else dt, dtype=dtype, device=dev)
+    s = torch.tensor(svc, dtype=dtype, device=dev)
+    si, di = torch.tensor(src, device=dev), torch.tensor(dst, device=dev)
+    got = port_kernel.xbar_scan(tdt, si, di, s.t().contiguous(),
+                                n_ports=n_ports, absolute=absolute)
+    plain = (port_ref.xbar_contend_abs_ref if absolute
+             else port_ref.xbar_contend_slack_ref)
+    assert torch.equal(got, plain(tdt, si, di, s, n_ports=n_ports))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_out_of_range_ports():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    t, _, src, dst, svc = _inputs(5, 64, 3, 8)
+    dev = torch.device("cuda")
+    dst[5] = 8
+    with pytest.raises(ValueError, match="port ids"):
+        port_kernel.xbar_scan(torch.tensor(t, device=dev), torch.tensor(src, device=dev),
+                              torch.tensor(dst, device=dev),
+                              torch.tensor(svc.T.copy(), device=dev),
+                              n_ports=8, absolute=True)
