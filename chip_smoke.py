@@ -19,14 +19,16 @@ final ``{"ok": true, ...}`` line:
            at 40 and 300 ports, each with its chain bound: the timeline's
            dependency depth times one step's latency, measured; iSLIP at 8
            and 32 ports, 1-4 iterations, batches of 1 and 4096; the header
-           parser on the hft and datacenter protocols
-           at 9,600 and 1,048,576 headers; the fused cycle loop
+           parser on the hft, datacenter and Ethernet/IPv4/UDP protocols
+           at 9,600 and 1,048,576 headers (a wrapper call and the kernel
+           alone); the fused cycle loop
            (switch_loop, every output) on hft's rung-4 champion at full
            length, the 12 forward table x VOQ x scheduler kinds on 2,000
            cycles of hft, 32-port iSLIP with 1-4 rounds on saturating
            traffic, a ring and a table placed in device memory, a
-           Shared-VOQ incast that drops and a broadcast-heavy Ethernet
-           header on a small hash table; int8 quantize from float32 and
+           Shared-VOQ incast that drops, a broadcast-heavy Ethernet
+           header on a small hash table and a header whose keys lie past
+           word 0, one across two words; int8 quantize from float32 and
            bfloat16 and dequantize to both, at the dispatch buffers of
            comm_small and moe_dispatch and of one full-width
            qwen3-moe-235b-a22b layer, [131072, 4096], with all-zero groups
@@ -56,7 +58,8 @@ final ``{"ok": true, ...}`` line:
            switch), compared with the
            JAX package's runs recorded in tests/torch_golden/: the report,
            the escalated cycle result exactly, and the calibrated η;
-           switch_loop (one launch per simulation) and parser must launch.
+           switch_loop (one launch per simulation, parsing each header at
+           ingress) must launch, the batch parser must not.
            Stage walls, calibration and rung-4 walls, µs per cycle;
            (c) the comm domain: run_scenario on comm_small (against
            tests/golden/comm_small.json), moe_dispatch and grad_bucket
@@ -129,6 +132,11 @@ COMM_RUNS = ("comm_small", "moe_dispatch", "grad_bucket")
 #: comm_small's layer output against the reference's, relative to max |y|
 #: (the expert FFN's bfloat16 products round differently in cuBLAS and XLA)
 Y_RTOL = 2e-2
+#: a header built with the DSL whose routing and src keys lie past word 0,
+#: the routing key across words 1 and 2 (bits 54-65), so that the switch
+#: loop's ingress parse runs its two-piece path: (name, bits, semantic)
+MULTIWORD_FIELDS = (("flow", 54, None), ("dst", 12, "routing_key"),
+                    ("src", 12, "src_key"), ("len", 14, "length"))
 #: the full-width MoE layer of the scale phase
 SCALE_ARCH = "qwen3-moe-235b-a22b"
 SCALE_TOKENS = (8, 1024)
@@ -506,55 +514,109 @@ def kernels_islip(dev, stats):
     return ok
 
 
-def kernels_parser(dev, stats):
-    """The header parser on the hft and datacenter protocols: the switch's
-    calibration trace (9,600 headers) and a million headers."""
+def kernel_alone_ms(fn, name: str, reps: int) -> float:
+    """Device time per call of the kernels whose names hold ``name``, under
+    torch.profiler (a wrapper call's ``ms`` also holds what the host does
+    between launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):                # a window that caught no kernel is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                 for e in prof.key_averages() if name in e.key)
+        if us:
+            return us / reps / 1e3
+    raise AssertionError(f"torch.profiler recorded no {name} kernel")
+
+
+#: the header parser's forms: each protocol (``parser_protocol``) at 9,600
+#: headers (hft's calibration trace) and 1,048,576
+PARSER_PROTOCOLS = ("hft", "datacenter", "ethernet_ipv4_udp")
+PARSER_BATCHES = (9600, 1048576)
+
+
+def parser_protocol(name):
+    """A parser form's protocol: a registry scenario's, or the stock
+    Ethernet/IPv4/UDP stack (11 words, 17 fields in 20 pieces)."""
+    from repro_torch.api import build_bound, registry
+    from repro_torch.core import ethernet_ipv4_udp
+    if name == "ethernet_ipv4_udp":
+        return ethernet_ipv4_udp()
+    return build_bound(registry[name]).protocol
+
+
+def parser_words(proto, b: int, dev, seed: int = 1):
+    """b headers of random field values, packed, on ``dev``."""
     import numpy as np
     import torch
-    from repro_torch.api import build_bound, registry
-    from repro_torch.kernels.parser import bake_slices, parse_headers, parse_ref
-    from repro_torch.kernels.parser import kernel as pk
     from repro_torch.switch.parser import pack_header_words
+    rng = np.random.default_rng(seed)
+    vals = {f.name: rng.integers(0, 2 ** min(f.bits, 63), b, dtype=np.uint64)
+            for f in proto.fields}
+    return torch.from_numpy(pack_header_words(proto, vals)).to(dev)
+
+
+def kernels_parser(dev, stats):
+    """The header parser on the hft, datacenter and Ethernet/IPv4/UDP
+    protocols, every field: the switch's calibration trace (9,600
+    headers) and a million headers.  ``ms`` is a wrapper call,
+    ``kernel_ms`` the kernel alone."""
+    import torch
+    from repro_torch.kernels.parser import parse_headers, parse_ref, slices
+    from repro_torch.kernels.parser import kernel as pk
 
     ok = True
-    rng = np.random.default_rng(1)
-    for name in ("hft", "datacenter"):
-        proto = build_bound(registry[name]).protocol
+    for name in PARSER_PROTOCOLS:
+        proto = parser_protocol(name)
         fields = [f.name for f in proto.fields]
-        for b in (9600, 1048576):
-            vals = {f.name: rng.integers(0, 2 ** f.bits, b, dtype=np.uint64)
-                    for f in proto.fields}
-            words = torch.from_numpy(pack_header_words(proto, vals)).to(dev)
-            baked = bake_slices(proto, fields)
-            table, first = pk.slice_table(baked, dev)
+        sl = slices(proto, fields)
+        for b in PARSER_BATCHES:
+            words = parser_words(proto, b, dev)
             w, f = words.shape[1], len(fields)
-            kern = lambda: pk.parse_words(words, table, first, n_words=w)  # noqa: E731
+            kern = lambda: parse_headers(proto, fields, words)   # noqa: E731
             plain = lambda: parse_ref(proto, fields, words)      # noqa: E731
             n0 = pk.LAUNCHES
-            got, want = parse_headers(proto, fields, words), plain()
+            got, want = kern(), plain()
             torch.cuda.synchronize()
             assert pk.LAUNCHES == n0 + 1, "parse_headers did not launch the kernel"
-            pieces = sum(len(p) for p in baked)
+            pieces = sum(len(p) for p in sl.baked)
             bound, by = _bound(b * (w + f) * 4, b * pieces * 4, 4)
+            k_ms = kernel_alone_ms(kern, "parse_kernel", reps=20)
+            rows, smem = pk.plan(w, f, b, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
             rec = {"kernel": "parse_headers", "form": f"parser_{name}",
-                   "shape": f"B{b}", "B": b, "words": w, "fields": f,
-                   "ms": cuda_ms(kern, reps=20), "plain_ms": wall_ms(plain),
-                   "bound_ms": bound, "bound_by": by}
+                   "shape": f"B{b}", "B": b, "words": w, "fields": f, "pieces": pieces,
+                   "ms": cuda_ms(kern, reps=20), "kernel_ms": k_ms,
+                   "plain_ms": wall_ms(plain), "bound_ms": bound, "bound_by": by,
+                   "bound_share": bound / k_ms, "tile_rows": rows, "smem_bytes": smem}
             ok &= _record(stats, rec, (got,), (want,))
     return ok
 
 
 def _switch_form(arch, bound, trace, fclk, max_cycles, dev):
-    """The fused loop's inputs for one simulation, as simulate makes them."""
+    """The fused loop's inputs for one simulation, as simulate makes them:
+    arr_pid, the header words, the sizes and the keys' baked slices."""
     import torch
-    from repro_torch.kernels.parser import parse_headers
+    from repro_torch.kernels.parser import slices
     from repro_torch.switch.switch import prepare_cycle_inputs
     prep = prepare_cycle_inputs(arch, bound, trace, fclk, max_cycles=max_cycles)
-    words = torch.from_numpy(prep["header_words"]).to(dev)
-    keys = parse_headers(bound.protocol, [bound.semantics["routing_key"],
-                                          bound.semantics["src_key"]], words)
-    return (torch.from_numpy(prep["arr_pid"]).to(dev), keys,
-            torch.from_numpy(prep["size_flits"]).to(dev))
+    keys = slices(bound.protocol, [bound.semantics["routing_key"],
+                                   bound.semantics["src_key"]]).baked
+    return (torch.from_numpy(prep["arr_pid"]).to(dev),
+            torch.from_numpy(prep["header_words"]).to(dev),
+            torch.from_numpy(prep["size_flits"]).to(dev), keys)
+
+
+def multiword_protocol():
+    """``MULTIWORD_FIELDS`` as a protocol of the port's DSL."""
+    from repro_torch.core.dsl import Field, Protocol
+    return Protocol("multiword", [Field(n, b, semantic=sem)
+                                  for n, b, sem in MULTIWORD_FIELDS])
 
 
 def _port_trace(name, senders, n_ports, cycles, fclk, dst_of, payload):
@@ -579,8 +641,9 @@ def switch_loop_forms(dev):
     cycles); the 12 table x VOQ x scheduler kinds on a 2,000-cycle cut of
     hft; 32-port iSLIP on datacenter's calibration traffic with 1-4 rounds;
     a ring and a table too large for shared memory; a Shared-VOQ incast
-    that drops; and a broadcast-heavy Ethernet header on a small hash table
-    (evictions, unlearned destinations)."""
+    that drops; a broadcast-heavy Ethernet header on a small hash table
+    (evictions, unlearned destinations); and a header whose keys lie past
+    word 0, one across two words (``MULTIWORD_FIELDS``)."""
     import numpy as np
     from repro_torch.api import build_bound, registry
     from repro_torch.core import bind, ethernet_ipv4_udp
@@ -639,6 +702,11 @@ def switch_loop_forms(dev):
     # ports 0-3 send, to all 8: ports 4-7 are never learned (broadcast)
     bcast = _port_trace("bcast", 4, 8, 500, f, lambda rng, s, c: rng.integers(0, 8, c), 16)
     forms["eth_hash_broadcast"] = (arch, eth, bcast, f, 1500)
+    # keys past word 0, the routing key across two words, on hft's traffic
+    multi = bind(multiword_protocol(), flit_bits=256)
+    arch = SwitchArch(8, 128, ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
+                      SchedulerKind.ISLIP, voq_depth=8, addr_bits=4)
+    forms["multiword_keys"] = (arch, multi, hft_trace, fclk(arch, multi), 2000)
     return forms
 
 
@@ -650,9 +718,9 @@ def kernels_switch_loop(dev, stats):
 
     ok = True
     for form, (arch, bound, trace, fclk, cycles) in switch_loop_forms(dev).items():
-        arr, keys, sizes = _switch_form(arch, bound, trace, fclk, cycles, dev)
-        kern = lambda: slk.switch_loop_launch(arch, arr, keys, sizes)  # noqa: E731
-        plain = lambda: switch_loop_ref(arch, arr, keys, sizes)       # noqa: E731
+        arr, words, sizes, keys = _switch_form(arch, bound, trace, fclk, cycles, dev)
+        kern = lambda: slk.switch_loop_launch(arch, arr, words, sizes, keys)  # noqa: E731
+        plain = lambda: switch_loop_ref(arch, arr, words, sizes, keys)       # noqa: E731
         got = kern()
         torch.cuda.synchronize()
         t_plain = time.perf_counter()
@@ -660,10 +728,13 @@ def kernels_switch_loop(dev, stats):
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t_plain) * 1e3
         t, n = arr.shape
-        npkt = keys.shape[0]
-        # read arr_pid, each packet's keys and size once; write its departure
-        # cycle, the occupancy trace, the per-queue maxima and 3 counters
-        moved = t * n * 4 + npkt * 12 + max(npkt, 1) * 8 + t * 8 + n * n * 8 + 24
+        npkt = words.shape[0]
+        key_words = len({p[0] for pieces in keys for p in pieces})
+        # read arr_pid, the header words holding each packet's keys and its
+        # size once; write its departure cycle, the occupancy trace, the
+        # per-queue maxima and 3 counters
+        moved = (t * n * 4 + npkt * (4 * key_words + 4) + max(npkt, 1) * 8 + t * 8
+                 + n * n * 8 + 24)
         bound_ms, by = _bound(moved, t * n * n, 4)
         k_ms = cuda_ms(kern, reps=3)
         p = slk.plan(arch, npkt)
@@ -671,6 +742,7 @@ def kernels_switch_loop(dev, stats):
                "arch": arch.short(), "n_ports": n, "packets": npkt, "cycles": t,
                "delivered": int(want.delivered), "drops": int(want.drops),
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": by,
+               "header_words": words.shape[1], "key_words": key_words,
                "chain_cycles": t, "us_per_cycle": k_ms * 1e3 / max(t, 1),
                "plain_us_per_cycle": p_ms * 1e3 / max(t, 1),
                "smem_bytes": p.smem_bytes, "table_shared": p.table_shared,
@@ -1252,8 +1324,8 @@ def _check_switch_run(name, report, eta_cache):
 
 def path_switch(dev, stats):
     """(b) the registry's defaults (back-annotation) with the champion
-    escalated to the cycle-level switch; switch_loop and parser must
-    launch."""
+    escalated to the cycle-level switch; switch_loop must launch, the
+    batch parser must not (the loop parses at ingress)."""
     import repro_torch.switch.switch as sw
     from repro_torch.api import registry, run_scenario
     from repro_torch.sim import backannotate
@@ -1297,8 +1369,11 @@ def path_switch(dev, stats):
     stats["launches"].update({k: launches[k] for k in
                               ("switch_loop", "parse_headers", "islip_schedule")})
     say("path", path="switch", launches=launches)
-    if not (launches["switch_loop"] > 0 and launches["parse_headers"] > 0):
-        failures.append(f"switch_loop/parser did not run on the switch path: {launches}")
+    # the switch parses at ingress inside switch_loop (csrc/switch_loop.cu),
+    # as the reference's cycle step does: the batch parser has no launch here
+    if not (launches["switch_loop"] > 0 and launches["parse_headers"] == 0):
+        failures.append(f"switch_loop did not run, or parse_headers did, on the "
+                        f"switch path: {launches}")
     return failures
 
 
@@ -2007,7 +2082,8 @@ KERNELS = {
                     "replaces": "src/repro/switch/switch.py:214 (lax.scan) and "
                                 "src/repro/kernels/islip/kernel.py:73",
                     "main": ("hft_rung4_champion", None)},
-    # hft's calibration trace: 9,600 headers parsed once before the loop
+    # no longer on a main path (the switch parses at ingress inside
+    # switch_loop): hft's protocol at its calibration trace's 9,600 headers
     "parse_headers": {"source": "src/repro_torch/csrc/parser.cu",
                       "replaces": "src/repro/kernels/parser/kernel.py:45",
                       "main": ("parser_hft", "B9600")},

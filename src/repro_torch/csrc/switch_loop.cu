@@ -8,9 +8,10 @@
 // repro_torch/kernels/switch_loop/ref.py, and this kernel is held to it bit
 // for bit.
 //
-// One cycle, as the reference steps it: gather the arriving packets' parsed
-// keys (routing, src); the forward table learns src -> port (full lookup:
-// the highest lane wins an address two lanes learn; multi-bank hash: in
+// One cycle, as the reference steps it: parse the arriving packets'
+// headers (the routing and src keys, from the words their baked pieces
+// name); the forward table learns src -> port (full lookup: the highest
+// lane wins an address two lanes learn; multi-bank hash: in
 // port order, so a later port sees an earlier port's insert) and looks up
 // the output port (miss: broadcast to every port but the source); the VOQs
 // enqueue (N x N: one copy per queue; Shared: one data slot per packet,
@@ -25,10 +26,10 @@
 // requests depend on the previous cycle's queues and busy counters, so the
 // cycles cannot run in parallel; a cycle is a few dozen warp-synchronous
 // steps, and the time is their latency times T.  The bytes a simulation
-// must move (arr_pid, the keys and sizes of its packets, the departure
-// cycles and the occupancy trace) take well under a millisecond at
-// 3.35 TB/s.  The eager loop issued 103-120 launches a cycle; this kernel
-// issues one per simulation.
+// must move (arr_pid, the header words holding its packets' keys and their
+// sizes, the departure cycles and the occupancy trace) take well under a
+// millisecond at 3.35 TB/s.  The eager loop issued 103-120 launches a
+// cycle; this kernel issues one per simulation.
 //
 // Design.  State lives where one lane reaches it in a few clocks:
 //   * registers: lane p holds port p's busy counters, grant/accept
@@ -40,11 +41,18 @@
 //     (2^addr_bits ports, or the hash banks' keys and ports) and the VOQ
 //     ring [N, N, D] where they fit in the 227 KB a block may use
 //     (kernel.plan in Python picks the placement); otherwise global memory.
-//   * global memory: arr_pid (the next two cycles' rows and the next
-//     cycle's keys are loaded ahead), the keys, sizes, Shared-VOQ refcounts
-//     and departure cycles.  A packet's queues all belong to its source
-//     port, so only the source's lane touches its refcount and departure
-//     cycle: no atomics.
+//   * global memory: arr_pid, the header words, sizes, Shared-VOQ
+//     refcounts and departure cycles.  The parse is at ingress, as in the
+//     reference's cycle step and on the FPGA, but kept off the cycle's
+//     dependent chain: a lane loads its port's arrivals three cycles ahead,
+//     the header words that the keys' pieces name (one load a piece) two
+//     cycles ahead, and extracts the keys one cycle ahead (a shift, a mask
+//     and a shift a piece), so no load waits inside the cycle that uses
+//     it.  The extraction still takes the warp's issue slots, so keys of
+//     one piece each (SPLIT false: hft's and datacenter's headers) have an
+//     instantiation that loads one word a key and shifts it once.  A
+//     packet's queues all belong to its source port, so only the source's
+//     lane touches its refcount and departure cycle: no atomics.
 // Sets of ports are bit masks; the schedulers' rotating pick is a rotate
 // and __ffs, and their request/grant/accept rounds are islip_match.cuh,
 // which csrc/islip.cu runs too.  The Shared-VOQ admission is a prefix count
@@ -65,9 +73,18 @@ constexpr int VOQ_NXN = 0, VOQ_SHARED = 1;
 constexpr int SCHED_RR = 0, SCHED_ISLIP = 1, SCHED_EDRRM = 2;
 constexpr int BROADCAST = -2;
 
+// the routing key's (0) and the src key's (1) baked pieces: a key of at
+// most 32 bits spans at most two header words, so at most two pieces each;
+// piece j of key f is ((header word `word[f][j]` >> lo) & mask) << dst, and
+// a key of one piece has a second of mask 0, which reads no word
+struct KeyPieces {
+  int word[2][2], lo[2][2], dst[2][2];
+  uint32_t mask[2][2];
+};
+
 struct Args {
   const int32_t* arr_pid;     // [T, N] arriving packet per cycle and port, -1 none
-  const uint2* keys;          // [npkt] (routing key, src key), parsed
+  const uint32_t* words;      // [npkt, W] packed header words
   const int32_t* size_flits;  // [npkt]
   const uint32_t* mults;      // [banks] hash multipliers
   int32_t* rem;               // [npkt] Shared VOQ: pending copies, zeros in
@@ -77,10 +94,13 @@ struct Args {
   int64_t* scalars;           // [3] delivered copies, drops, data slots max
   int32_t* gtable;            // forward table in global memory (or null)
   int32_t* gring;             // VOQ ring in global memory (or null)
-  int T, N, D, fwd, voq, sched, iters, addr_bits, banks, depth;
+  KeyPieces kp;
+  int W, T, N, D, fwd, voq, sched, iters, addr_bits, banks, depth;
   int table_shared, ring_shared;
 };
 
+// SPLIT: some key has a second piece (a key across two header words)
+template <bool SPLIT>
 __global__ void __launch_bounds__(32, 1) switch_loop_kernel(const Args a) {
   extern __shared__ int32_t smem[];
   const int lane = threadIdx.x;
@@ -122,15 +142,38 @@ __global__ void __launch_bounds__(32, 1) switch_loop_kernel(const Args a) {
   auto arrival = [&](int k) -> int {
     return (port && k < T) ? a.arr_pid[(long long)k * N + lane] : -1;
   };
-  int pid_next = arrival(0), pid_after = arrival(1);
-  uint2 key_next = pid_next >= 0 ? a.keys[pid_next] : make_uint2(0u, 0u);
+  // the header word of each key piece of packet pid (zeros for none)
+  auto load_words = [&](int pid, uint32_t (&w)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (pid >= 0 && (SPLIT || i % 2 == 0) && a.kp.mask[i / 2][i % 2])
+                 ? a.words[(long long)pid * a.W + a.kp.word[i / 2][i % 2]] : 0u;
+  };
+  auto extract = [&](const uint32_t (&w)[4]) -> uint2 {
+    unsigned key[2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      key[f] = ((w[2 * f] >> a.kp.lo[f][0]) & a.kp.mask[f][0]) << a.kp.dst[f][0];
+      if (SPLIT)
+        key[f] |= ((w[2 * f + 1] >> a.kp.lo[f][1]) & a.kp.mask[f][1]) << a.kp.dst[f][1];
+    }
+    return make_uint2(key[0], key[1]);
+  };
+  // arrivals three cycles ahead, header words two, keys one
+  int pid_next = arrival(0), pid_after = arrival(1), pid_far = arrival(2);
+  uint32_t raw[4];
+  load_words(pid_next, raw);
+  uint2 key_next = extract(raw);
+  load_words(pid_after, raw);
 
   for (int k = 0; k < T; ++k) {
     const int pid = pid_next;
     const uint2 key = key_next;     // .x routing key, .y src key
     pid_next = pid_after;
-    key_next = pid_next >= 0 ? a.keys[pid_next] : make_uint2(0u, 0u);
-    pid_after = arrival(k + 2);
+    key_next = extract(raw);        // cycle k + 1's, from words loaded a cycle ago
+    pid_after = pid_far;
+    load_words(pid_after, raw);     // cycle k + 2's
+    pid_far = arrival(k + 3);
     const bool valid = pid >= 0;
     __syncwarp();
 
@@ -303,19 +346,25 @@ __global__ void __launch_bounds__(32, 1) switch_loop_kernel(const Args a) {
 
 extern "C" {
 
+int switch_loop_key_pieces_bytes() { return int(sizeof(KeyPieces)); }
+
 // Launch one simulation on `stream`.  The caller allocates every buffer
 // (kernels/switch_loop/kernel.py) and chooses the placement (`plan`):
-// smem_bytes is the dynamic shared memory it sized.  Returns the CUDA error
-// code of the launch (0: launched).
-int switch_loop_i32(const void* arr_pid, const void* keys, const void* size_flits,
-                    const void* mults, void* rem, void* dep_cycle, void* occ_trace,
+// smem_bytes is the dynamic shared memory it sized; `kp` is a host pointer
+// to the keys' pieces.  Returns the CUDA error code of the launch (0:
+// launched).
+int switch_loop_i32(const void* arr_pid, const void* words, const void* kp, int W,
+                    const void* size_flits, const void* mults, void* rem,
+                    void* dep_cycle, void* occ_trace,
                     void* occ_max, void* scalars, void* gtable, void* gring, int T,
                     int N, int D, int fwd, int voq, int sched, int iters,
                     int addr_bits, int banks, int depth, int table_shared,
                     int ring_shared, int smem_bytes, void* stream) {
   Args a;
   a.arr_pid = static_cast<const int32_t*>(arr_pid);
-  a.keys = static_cast<const uint2*>(keys);
+  a.words = static_cast<const uint32_t*>(words);
+  a.kp = *static_cast<const KeyPieces*>(kp);
+  a.W = W;
   a.size_flits = static_cast<const int32_t*>(size_flits);
   a.mults = static_cast<const uint32_t*>(mults);
   a.rem = static_cast<int32_t*>(rem);
@@ -337,10 +386,12 @@ int switch_loop_i32(const void* arr_pid, const void* keys, const void* size_flit
   a.depth = depth;
   a.table_shared = table_shared;
   a.ring_shared = ring_shared;
+  const bool split = a.kp.mask[0][1] || a.kp.mask[1][1];
+  auto kernel = split ? switch_loop_kernel<true> : switch_loop_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      switch_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return int(err);
-  switch_loop_kernel<<<1, 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<1, 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

@@ -6,10 +6,13 @@ Replaces the JAX package's jitted ``lax.scan`` over cycles
 simulation in one launch, one warp, lane = port.  Bound by the serial chain
 of dependent cycles (see the note at the top of the CUDA source).
 
-Contract: ``arr_pid`` [T, N] int32, ``keys`` [npkt, 2] uint32 (routing key,
-src key, as the parser gives them), ``size_flits`` [npkt] int32, all on one
-CUDA device and contiguous, and the architecture; each packet id appears at
-most once in ``arr_pid`` (as ``prepare_cycle_inputs`` bins a trace).
+Contract: ``arr_pid`` [T, N] int32, ``words`` [npkt, W] uint32 (the packed
+headers), ``size_flits`` [npkt] int32, all on one CUDA device and
+contiguous, the architecture, and the routing and src keys' baked slices
+(``kernels.parser.bake_slices(protocol, [routing_key, src_key])``, at most
+two pieces a key): the kernel parses each arriving header at ingress, as
+the reference's cycle step does.  Each packet id appears at most once in
+``arr_pid`` (as ``prepare_cycle_inputs`` bins a trace).
 Returns ``SwitchLoopOut``, bitwise equal to ``ref.switch_loop_ref``.  N <=
 32 ports, hash banks <= 32, full-lookup address bits <= 30; an architecture
 whose custom kernel carries a Python ``fn`` is refused (it runs on the
@@ -21,6 +24,7 @@ counts the kernel launches of this process.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -29,9 +33,11 @@ from repro_torch.core.archspec import (ForwardTableKind, SchedulerKind,
                                        SwitchArch, VOQKind)
 from repro_torch.switch.forward_table import _HASH_MULTS
 from ..build import MAX_SMEM_BYTES, check_launch, check_tensor, library
+from ..parser.ref import WORD_BITS, Baked
 from .ref import SwitchLoopOut
 
-__all__ = ["LAUNCHES", "MAX_PORTS", "Plan", "plan", "switch_loop_launch"]
+__all__ = ["LAUNCHES", "MAX_PORTS", "KeyPieces", "Plan", "key_pieces", "plan",
+           "switch_loop_launch"]
 
 #: kernel launches since the counter was last reset (``chip_smoke.py`` sets
 #: it to 0 before the main path and reads it after)
@@ -48,6 +54,30 @@ _SCHED = {SchedulerKind.RR: 0, SchedulerKind.ISLIP: 1, SchedulerKind.EDRRM: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class KeyPieces(ctypes.Structure):
+    """The routing key's (0) and the src key's (1) pieces as the kernel
+    reads them (``csrc/switch_loop.cu``'s struct): piece j of key f is
+    ``((header word word[f][j] >> lo) & mask) << dst``; a key of one piece
+    has a second of mask 0."""
+    _fields_ = [("word", (ctypes.c_int * 2) * 2), ("lo", (ctypes.c_int * 2) * 2),
+                ("dst", (ctypes.c_int * 2) * 2), ("mask", (ctypes.c_uint32 * 2) * 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def key_pieces(key_slices: Baked) -> KeyPieces:
+    """The two keys' baked slices as the kernel's struct.  Raises unless
+    there are two keys of at most two pieces each."""
+    if len(key_slices) != 2 or any(len(p) > 2 for p in key_slices):
+        raise ValueError(f"the switch-loop kernel parses a routing and a src key of "
+                         f"at most two pieces each, got {key_slices}")
+    kp = KeyPieces()
+    for f, pieces in enumerate(key_slices):
+        for j, (w, lo, take, dst) in enumerate(pieces):
+            kp.word[f][j], kp.lo[f][j], kp.dst[f][j] = w, lo, dst
+            kp.mask[f][j] = (1 << take) - 1 if take < WORD_BITS else 0xFFFFFFFF
+    return kp
 
 
 class Plan(NamedTuple):
@@ -92,14 +122,18 @@ def plan(arch: SwitchArch, npkt: int) -> Plan:
 def _lib():
     lib = library("switch_loop")
     if not getattr(lib, "_spac_typed", False):
-        lib.switch_loop_i32.argtypes = [_P] * 11 + [_I] * 13 + [_P]
+        lib.switch_loop_key_pieces_bytes.restype = ctypes.c_int
+        if lib.switch_loop_key_pieces_bytes() != ctypes.sizeof(KeyPieces):
+            raise RuntimeError("csrc/switch_loop.cu's KeyPieces and kernel.KeyPieces "
+                               "differ in size")
+        lib.switch_loop_i32.argtypes = [_P] * 3 + [_I] + [_P] * 9 + [_I] * 13 + [_P]
         lib.switch_loop_i32.restype = ctypes.c_int
         lib._spac_typed = True
     return lib
 
 
-def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, keys: torch.Tensor,
-                       size_flits: torch.Tensor) -> SwitchLoopOut:
+def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, words: torch.Tensor,
+                       size_flits: torch.Tensor, key_slices: Baked) -> SwitchLoopOut:
     """Launch one simulation on ``arr_pid``'s CUDA device."""
     global LAUNCHES
     if any(k.fn is not None for k in arch.custom_kernels):
@@ -108,14 +142,19 @@ def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, keys: torch.Tens
     if arr_pid.device.type != "cuda":
         raise ValueError(f"switch_loop_launch launches a CUDA kernel; got a tensor on "
                          f"{arr_pid.device} (the plain version is ref.py)")
-    n, npkt = arch.n_ports, keys.shape[0]
+    kp = key_pieces(key_slices)
+    if arr_pid.dim() != 2 or words.dim() != 2:
+        raise ValueError(f"arr_pid must be [T, N] and words [npkt, W], got "
+                         f"{tuple(arr_pid.shape)} and {tuple(words.shape)}")
+    n, (npkt, w) = arch.n_ports, words.shape
+    last = max((p[0] for pieces in key_slices for p in pieces), default=-1)
+    if last >= w:
+        raise ValueError(f"the keys read header word {last}, but a header has {w}")
     p = plan(arch, npkt)
     dev = arr_pid.device
-    if arr_pid.dim() != 2:
-        raise ValueError(f"arr_pid must be [T, N], got {tuple(arr_pid.shape)}")
     t = arr_pid.shape[0]
     check_tensor(arr_pid, "arr_pid", torch.int32, (t, n), dev)
-    check_tensor(keys, "keys", torch.uint32, (npkt, 2), dev)
+    check_tensor(words, "words", torch.uint32, (npkt, w), dev)
     check_tensor(size_flits, "size_flits", torch.int32, (npkt,), dev)
     i64 = dict(dtype=torch.int64, device=dev)
     dep_cycle = torch.full((max(npkt, 1),), -1, **i64)
@@ -136,7 +175,8 @@ def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, keys: torch.Tens
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.switch_loop_i32(
-            arr_pid.data_ptr(), keys.data_ptr(), size_flits.data_ptr(), mults.data_ptr(),
+            arr_pid.data_ptr(), words.data_ptr(), ctypes.byref(kp), w,
+            size_flits.data_ptr(), mults.data_ptr(),
             rem.data_ptr(), dep_cycle.data_ptr(), occ_trace.data_ptr(), occ_max.data_ptr(),
             scalars.data_ptr(), ptr(gtable), ptr(gring), t, n, arch.voq_depth,
             _FWD[arch.fwd], _VOQ[arch.voq], _SCHED[arch.sched], arch.islip_iters,

@@ -16,11 +16,11 @@ from .ref import switch_loop_ref
 __all__ = ["switch_loop"]
 
 
-def switch_loop(arch, arr_pid, keys, size_flits):
-    """arr_pid [T, N], keys [npkt, 2] (routing, src), size_flits [npkt]
-    -> ``SwitchLoopOut``."""
+def switch_loop(arch, arr_pid, words, size_flits, key_slices):
+    """arr_pid [T, N], words [npkt, W] (packed headers), size_flits [npkt],
+    the routing and src keys' baked slices -> ``SwitchLoopOut``."""
     if arr_pid.device.type == "cpu":
-        return switch_loop_ref(arch, arr_pid, keys, size_flits)
+        return switch_loop_ref(arch, arr_pid, words, size_flits, key_slices)
     return kernel.switch_loop_launch(arch, arr_pid.to(torch.int32).contiguous(),
-                                     keys.to(torch.uint32).contiguous(),
-                                     size_flits.to(torch.int32).contiguous())
+                                     words.to(torch.uint32).contiguous(),
+                                     size_flits.to(torch.int32).contiguous(), key_slices)

@@ -5,7 +5,9 @@ The counterpart of the JAX package's jitted ``lax.scan`` in
 cycles whose body steps the forward table (``switch/forward_table.py``),
 the VOQs (``switch/voq.py``) and the scheduler (``switch/scheduler.py``) on
 tensors, on the device of its inputs, without reading a device value on
-the host.  Exact integer arithmetic, so the CUDA kernel (``kernel.py``) is
+the host.  The headers' routing and src keys are extracted once, before
+the loop, by ``kernels/parser/ref.extract_fields``: parsing is a pure
+function of the packet, so this is the reference's per-cycle parse.  Exact integer arithmetic, so the CUDA kernel (``kernel.py``) is
 held to it bit for bit.
 
 ``simulate`` on the CPU runs this, and so does an architecture whose
@@ -20,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.archspec import SchedulerKind, SwitchArch
+from repro_torch.kernels.parser.ref import Baked, extract_fields
 from repro_torch.switch import forward_table as ft
 from repro_torch.switch import scheduler as sch
 from repro_torch.switch import voq as vq
@@ -49,15 +52,15 @@ class _Carry(NamedTuple):
     kstates: Tuple            # custom kernel states
 
 
-def switch_loop_ref(arch: SwitchArch, arr_pid: torch.Tensor, keys: torch.Tensor,
-                    size_flits: torch.Tensor) -> SwitchLoopOut:
-    """arr_pid [T, N] (arriving packet id per cycle and port, -1 none), keys
-    [npkt, 2] (parsed routing and src keys), size_flits [npkt] -> every
-    cycle of the switch, on arr_pid's device."""
+def switch_loop_ref(arch: SwitchArch, arr_pid: torch.Tensor, words: torch.Tensor,
+                    size_flits: torch.Tensor, key_slices: Baked) -> SwitchLoopOut:
+    """arr_pid [T, N] (arriving packet id per cycle and port, -1 none), words
+    [npkt, W] (packed headers), size_flits [npkt], the routing and src keys'
+    baked slices -> every cycle of the switch, on arr_pid's device."""
     dev = arr_pid.device
     n = arch.n_ports
-    npkt = keys.shape[0]
-    keys = keys.to(torch.int64)
+    npkt = words.shape[0]
+    keys = torch.stack(extract_fields(key_slices, words.to(dev)), dim=1)   # [npkt, 2]
     size_flits = size_flits.to(dev, torch.int64)
     kernels = list(arch.custom_kernels)
     in_ports = torch.arange(n, dtype=torch.int64, device=dev)

@@ -36,8 +36,12 @@ NEG_INF = -1e30
 # ------------------------------------------------------------------- RoPE
 
 def _freqs(dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
-                                         device=device) / dim))
+    """``1 / theta ** (2i / dim)`` rounded once to float32.  The reference
+    writes it in float32, but its operands are constants, so XLA folds the
+    expression at compile time and rounds only the result; in float32 the
+    power's own rounding changed a third of the frequencies by an ulp."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return (1.0 / (theta ** exponent.double())).float()
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float):

@@ -24,10 +24,11 @@ hand-written CUDA kernel runs every cycle of the simulation; on the CPU its
 plain version, the eager loop, steps the table, VOQ and scheduler modules
 here once a cycle.  An architecture whose custom kernel carries a Python
 ``fn`` runs only on the CPU: no CUDA kernel can call Python, and on a card
-the kernel's wrapper refuses it.  Every header is parsed once, before the loop, by the parser op
-(the hand-written CUDA kernel on a card) and each cycle gathers its ports'
-fields: parsing is a pure function of the packet, so this is the
-reference's per-cycle parse.  Latency, percentiles and throughput are host
+the kernel's wrapper refuses it.  The loop takes the packed header words
+and the routing and src keys' baked slices: on a card the kernel parses
+each arriving header at ingress, as the reference's cycle step does (and
+the FPGA's parser); the eager loop extracts every header's keys once
+before it.  Latency, percentiles and throughput are host
 NumPy after the loop, copied from the reference.
 """
 
@@ -43,7 +44,7 @@ import torch
 from repro_torch.core.archspec import SwitchArch
 from repro_torch.core.binding import BoundProtocol
 from repro_torch.device import resolve_device
-from repro_torch.kernels.parser import parse_headers
+from repro_torch.kernels.parser import slices
 from repro_torch.kernels.switch_loop import ops as loop_ops
 from .parser import pack_header_words
 
@@ -154,12 +155,11 @@ def simulate(
     dev = resolve_device(device)
     prep = prepare_cycle_inputs(arch, bound, trace, fclk_hz, max_cycles=max_cycles)
     size_flits = torch.from_numpy(prep["size_flits"]).to(dev)
-    # parse every header once: [npkt, 2] uint32 (routing key, src key)
     words = torch.from_numpy(prep["header_words"]).to(dev)
-    keys = parse_headers(bound.protocol, [bound.semantics["routing_key"],
-                                          bound.semantics["src_key"]], words)
+    keys = slices(bound.protocol, [bound.semantics["routing_key"],
+                                   bound.semantics["src_key"]]).baked
     arr = torch.from_numpy(prep["arr_pid"]).to(dev)
-    out = loop_ops.switch_loop(arch, arr, keys, size_flits)
+    out = loop_ops.switch_loop(arch, arr, words, size_flits, keys)
     return sim_result(arch, prep, out, fclk_hz)
 
 

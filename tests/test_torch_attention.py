@@ -10,7 +10,9 @@ Contract, on the CPU with the plain PyTorch versions, on inputs made with
   ``atol = rtol = 3e-5`` in float32 (``tests/test_kernels.py``'s bar):
   GQA 4/1, 8/2 and 4/4, causal and not, a sliding window, S != T, and
   lengths that no block divides; bfloat16 within the reference's 0.05;
-- ``rope`` and ``mrope`` at 1e-6;
+- ``rope`` and ``mrope`` at 1e-6 against the reference compiled, as its
+  callers run it (XLA folds the constant frequencies and rounds them once;
+  the port's frequencies equal those bit for bit);
 - ``apply_attention`` (both implementations) and ``decode_attention`` (the
   plain cache, a window, the hybrid ring, and the cache write clamped at
   ``S_max - 1`` as ``dynamic_update_slice`` clamps it) at 1e-5 in float32;
@@ -152,20 +154,39 @@ def test_blockwise_bf16_within_reference_bar():
 # RoPE / M-RoPE
 # --------------------------------------------------------------------------
 
+def _ref_rope(theta):
+    """The reference's rope as its callers run it: compiled (the engine and
+    the trainer jit their steps), so XLA folds the constant frequencies."""
+    return jax.jit(lambda q, k, pos: RA.rope(q, k, pos, theta))
+
+
 def test_rope_matches_reference():
     rng = np.random.default_rng(7)
     q = rng.standard_normal((2, 4, 48, 32)).astype(np.float32)
     k = rng.standard_normal((2, 2, 48, 32)).astype(np.float32)
     pos = rng.integers(0, 4096, (2, 48))
     for theta in (1e4, 5e5):
-        rq, rk = RA.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos), theta)
+        rq, rk = _ref_rope(theta)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos))
         pq, pk = PA.rope(_t(q), _t(k), torch.from_numpy(pos), theta)
         np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
         np.testing.assert_allclose(_np(pk), _np(rk), atol=1e-6, rtol=1e-6)
     small = rng.integers(0, 64, (2, 48))
-    rq, _ = RA.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(small), 1e4)
+    rq, _ = _ref_rope(1e4)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(small))
     pq, _ = PA.rope(_t(q), _t(k), torch.from_numpy(small), 1e4)
     np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("theta,d", [(5e5, 64), (1e4, 128), (1e6, 128), (1e4, 96)])
+def test_rope_frequencies_equal_reference_compiled(theta, d):
+    """The reference writes ``1 / theta ** (2i / d)`` in float32
+    (``models/attention.py`` ``_rope_angles``), but its operands are
+    constants, so XLA folds it and rounds once: the port's frequencies are
+    those, bit for bit (in float32 the power's rounding moved a third of
+    them by an ulp)."""
+    want = jax.jit(lambda: 1.0 / (theta ** (jnp.arange(0, d, 2, dtype=jnp.float32) / d)))()
+    got = PA._freqs(d, theta, "cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_mrope_matches_reference():
@@ -173,7 +194,8 @@ def test_mrope_matches_reference():
     q = rng.standard_normal((2, 4, 40, 32)).astype(np.float32)
     k = rng.standard_normal((2, 2, 40, 32)).astype(np.float32)
     pos3 = rng.integers(0, 64, (2, 3, 40))
-    rq, rk = RA.mrope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos3), 1e6, (4, 6, 6))
+    rq, rk = jax.jit(lambda q, k, p: RA.mrope(q, k, p, 1e6, (4, 6, 6)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos3))   # compiled, as _ref_rope
     pq, pk = PA.mrope(_t(q), _t(k), torch.from_numpy(pos3), 1e6, (4, 6, 6))
     np.testing.assert_allclose(_np(pq), _np(rq), atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(_np(pk), _np(rk), atol=1e-6, rtol=1e-6)

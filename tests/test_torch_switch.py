@@ -23,6 +23,7 @@ import jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
 
+import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
@@ -53,7 +54,9 @@ from repro_torch.kernels.islip import islip_schedule  # noqa: E402
 from repro_torch.kernels.islip import kernel as islip_kernel  # noqa: E402
 from repro_torch.kernels.islip.ref import islip_ref  # noqa: E402
 from repro_torch.kernels.parser import parse_headers, parse_ref  # noqa: E402
+from repro_torch.kernels.parser import bake_slices as bake_port_slices  # noqa: E402
 from repro_torch.kernels.parser import kernel as parser_kernel  # noqa: E402
+from repro_torch.kernels.parser import slices as parser_slices  # noqa: E402
 from repro_torch.sim import backannotate as port_ba  # noqa: E402
 from repro_torch.switch import forward_table as pft  # noqa: E402
 from repro_torch.switch import scheduler as psch  # noqa: E402
@@ -118,17 +121,83 @@ def test_parser_equals_extractor_ref_and_pallas_tile(name):
 
 
 def test_parser_slice_table_lists_every_piece():
+    """The kernel's packed parameter holds bake_slices' pieces field after
+    field (word, lo, the take's mask, dst_shift, the last piece of each
+    field flagged): it round-trips."""
     proto = convert.from_reference(ethernet_ipv4_udp())
     from repro_torch.kernels.parser.ref import bake_slices
     baked = bake_slices(proto, [f.name for f in proto.fields])
-    table, first = parser_kernel.slice_table(baked, "cpu")
-    assert table.shape == (sum(map(len, baked)), 5)
-    assert first.tolist() == list(np.cumsum([0] + [len(p) for p in baked]))
-    rows = [tuple(r) for r in table.tolist()]
-    assert rows == [(f, *p) for f, pieces in enumerate(baked) for p in pieces]
+    table = parser_kernel.pack_table(baked)
+    assert (table.n_fields, table.n_pieces) == (len(baked), sum(map(len, baked)))
+    back, field = [], []
+    for p in table.piece[:table.n_pieces]:
+        field.append((p.word, p.lo, int(p.mask).bit_length(), p.dst & 31))
+        if p.dst & parser_kernel.LAST:
+            back.append(tuple(field))
+            field = []
+    assert tuple(back) == baked and not field
+    assert table.min_words == 1 + max(w for pieces in baked for w, *_ in pieces) == 11
+    assert ctypes.sizeof(parser_kernel.Table) == 2060   # csrc/parser.cu's sizeof(Table)
     with pytest.raises(ValueError, match="CUDA"):
-        parser_kernel.parse_words(torch.zeros((2, 3), dtype=torch.uint32),
-                                  table, first, n_words=3)
+        parser_kernel.parse_words(torch.zeros((2, 11), dtype=torch.uint32), table)
+
+
+def test_parser_wrapper_raises_above_its_caps():
+    one = ((0, 0, 8, 0),)
+    parser_kernel.pack_table((one,) * parser_kernel.MAX_PIECES)
+    with pytest.raises(ValueError, match="exceed"):
+        parser_kernel.pack_table((one,) * (parser_kernel.MAX_PIECES + 1))
+    with pytest.raises(ValueError, match="exceed"):
+        parser_kernel.pack_table((((0, 0, 1, 0),) * (parser_kernel.MAX_PIECES + 1),))
+    with pytest.raises(ValueError, match="words"):
+        parser_kernel.pack_table((((parser_kernel.MAX_WORDS, 0, 8, 0),),))
+    with pytest.raises(ValueError, match="words a header"):
+        parser_kernel.plan(parser_kernel.MAX_WORDS + 1, 4)
+    with pytest.raises(ValueError, match="fields"):
+        parser_kernel.plan(4, parser_kernel.MAX_FIELDS + 1)
+    # a tile's rows: a multiple of 32, its stages within a block's shared memory
+    for w, f in [(1, 2), (1, 4), (11, 17), (parser_kernel.MAX_WORDS, 64)]:
+        rows, smem = parser_kernel.plan(w, f)
+        assert rows % 32 == 0 and rows >= 32 and smem <= 232448
+        assert smem == 64 + 4 * rows * (3 * w + 2 * f)
+    # a batch too small to fill the SMs: smaller tiles, one a block
+    assert parser_kernel.plan(1, 4, 9600, 132).rows == 96
+    assert parser_kernel.plan(1, 4, 1, 132).rows == 32
+    assert parser_kernel.plan(1, 4, 1 << 20, 132) == parser_kernel.plan(1, 4)
+
+
+def test_parser_slices_are_cached_per_layout_and_fields():
+    proto = convert.from_reference(PROTOCOLS["qos_seq"]())
+    fields = [proto.fields[0].name, proto.fields[1].name]
+    got = parser_slices(proto, fields)
+    assert parser_slices(proto, fields) is got
+    # the layout's identity ignores the protocol's display name
+    renamed = type(proto)("another_name", proto.fields)
+    assert parser_slices(renamed, fields) is got
+    assert got.baked == bake_port_slices(proto, fields)
+    # other fields, or the same field names at other widths: a new table
+    assert parser_slices(proto, fields[::-1]) is not got
+    wider = convert.from_reference(compressed_protocol(addr_bits=9, qos_bits=4,
+                                                       length_bits=16, seq_bits=16))
+    assert [f.name for f in wider.fields] == [f.name for f in proto.fields]
+    other = parser_slices(wider, fields)
+    assert other is not got and other.baked != got.baked
+    assert other.baked == bake_port_slices(wider, fields)
+
+
+@pytest.mark.parametrize("b", [1, 255, 257, 9600])
+def test_parser_ragged_batches_equal_reference(b):
+    """ethernet_ipv4_udp (W 11, 17 fields, 20 pieces) at ragged batch sizes
+    against the reference's parse_ref and its Pallas tile (interpret mode)."""
+    proto = ethernet_ipv4_udp()
+    fields = [f.name for f in proto.fields]
+    words = _words(proto, np.random.default_rng(b), b)
+    want = _np(jax_parse_ref(proto, fields, jnp.asarray(words)))
+    np.testing.assert_array_equal(
+        _np(jax_parse(proto, fields, jnp.asarray(words), use_pallas=True)), want)
+    got = parse_headers(convert.from_reference(proto), fields, _t(words))
+    assert got.dtype == torch.uint32 and tuple(got.shape) == (b, 17)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # --------------------------------------------------------------------------
@@ -435,3 +504,21 @@ def test_cuda_parser_bitwise_vs_plain(name):
     pproto = convert.from_reference(proto)
     assert torch.equal(parse_headers(pproto, fields, words),
                        parse_ref(pproto, fields, words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 255, 257, 9600, 1048576])
+def test_cuda_parser_ragged_and_misaligned_bitwise(b):
+    """The kernel at ragged batch sizes, on a base 16-byte aligned (bulk
+    copies) and on one that is not (the block's own copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    proto = convert.from_reference(ethernet_ipv4_udp())
+    fields = [f.name for f in proto.fields]
+    words = torch.from_numpy(_words(ethernet_ipv4_udp(), np.random.default_rng(7),
+                                    b + 1)).cuda()
+    for x in (words[:b], words[1:]):
+        n0 = parser_kernel.LAUNCHES
+        got = parse_headers(proto, fields, x)
+        assert parser_kernel.LAUNCHES == n0 + 1
+        assert torch.equal(got, parse_ref(proto, fields, x))

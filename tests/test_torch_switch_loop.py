@@ -23,6 +23,7 @@ import jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
 
+import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -39,7 +40,7 @@ from repro.traces import hft, uniform  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import archspec as pa  # noqa: E402
-from repro_torch.kernels.parser import parse_headers  # noqa: E402
+from repro_torch.kernels.parser import slices  # noqa: E402
 from repro_torch.kernels.switch_loop import kernel as loop_kernel  # noqa: E402
 from repro_torch.kernels.switch_loop import ops as loop_ops  # noqa: E402
 from repro_torch.kernels.switch_loop import switch_loop, switch_loop_ref  # noqa: E402
@@ -84,13 +85,14 @@ def _arch(fwd, voq, sched, n, iters, depth=1):
 
 
 def _loop_inputs(arch, bound, trace, max_cycles, device="cpu"):
-    """The op's inputs as ``simulate`` makes them, and the binned trace."""
+    """The op's inputs as ``simulate`` makes them (arr_pid, header words,
+    sizes, the keys' baked slices), and the binned trace."""
     prep = sw.prepare_cycle_inputs(arch, bound, trace, FCLK, max_cycles=max_cycles)
-    words = torch.from_numpy(prep["header_words"]).to(device)
-    keys = parse_headers(bound.protocol, [bound.semantics["routing_key"],
-                                          bound.semantics["src_key"]], words)
-    return (prep, torch.from_numpy(prep["arr_pid"]).to(device), keys,
-            torch.from_numpy(prep["size_flits"]).to(device))
+    keys = slices(bound.protocol, [bound.semantics["routing_key"],
+                                   bound.semantics["src_key"]]).baked
+    return (prep, torch.from_numpy(prep["arr_pid"]).to(device),
+            torch.from_numpy(prep["header_words"]).to(device),
+            torch.from_numpy(prep["size_flits"]).to(device), keys)
 
 
 def _sim_fields(r):
@@ -114,15 +116,80 @@ def test_ref_equals_reference_simulate(case):
     bound, trace = _inputs(n)
     want = ref_simulate(arch, bound, trace, fclk_hz=FCLK, max_cycles=cycles)
     parch, pbound = convert.from_reference(arch), convert.from_reference(bound)
-    prep, arr, keys, sizes = _loop_inputs(parch, pbound, convert.from_reference(trace),
-                                          cycles)
-    out = switch_loop_ref(parch, arr, keys, sizes)
+    prep, arr, words, sizes, keys = _loop_inputs(
+        parch, pbound, convert.from_reference(trace), cycles)
+    out = switch_loop_ref(parch, arr, words, sizes, keys)
     assert out.dep_cycle.dtype == out.occ_trace.dtype == out.occ_max.dtype == torch.int64
     _assert_sim_equal(sw.sim_result(parch, prep, out, FCLK), want)
     # the op takes the plain version for CPU tensors
-    for a, b in zip(switch_loop(parch, arr, keys, sizes), out):
+    for a, b in zip(switch_loop(parch, arr, words, sizes, keys), out):
         assert torch.equal(a, b)
     assert want.delivered_copies > 0 and want.drops > 0
+
+
+def _multiword(dsl):
+    """chip_smoke.py's multi-word header, built with one package's DSL."""
+    return dsl.Protocol("multiword", [dsl.Field(n, b, semantic=sem)
+                                      for n, b, sem in _chip_smoke().MULTIWORD_FIELDS])
+
+
+#: the multi-word header on both tables, both VOQs and all three schedulers
+MULTIWORD_CASES = [(ForwardTableKind.FULL_LOOKUP, VOQKind.NXN, SchedulerKind.ISLIP),
+                   (ForwardTableKind.MULTIBANK_HASH, VOQKind.SHARED, SchedulerKind.EDRRM),
+                   (ForwardTableKind.FULL_LOOKUP, VOQKind.SHARED, SchedulerKind.RR)]
+
+
+def _multiword_inputs(fwd, voq, sched, device="cpu"):
+    from repro.core import dsl as rdsl
+    bound = bind(_multiword(rdsl), flit_bits=256)
+    arch = _arch(fwd, voq, sched, 8, 2, depth=2)
+    parch, pbound = convert.from_reference(arch), convert.from_reference(bound)
+    trace = hft(seed=3, duration_s=2e-6)
+    return (arch, bound, trace, parch,
+            _loop_inputs(parch, pbound, convert.from_reference(trace), 500, device))
+
+
+@pytest.mark.parametrize("fwd,voq,sched", MULTIWORD_CASES,
+                         ids=lambda c: getattr(c, "value", c))
+def test_ref_equals_reference_simulate_multiword(fwd, voq, sched):
+    """Keys past word 0, the routing key across words 1 and 2: the plain
+    loop, fed the header words, gives the reference's simulate exactly."""
+    arch, bound, trace, parch, (prep, arr, words, sizes, keys) = _multiword_inputs(
+        fwd, voq, sched)
+    assert words.shape[1] == 3
+    (route, src) = keys
+    assert [w for w, *_ in route] == [1, 2] and [w for w, *_ in src] == [2]
+    # hft's 8 ports: bit 2 of a destination lies in word 1, bits 1-0 in word 2
+    assert route[0][3] == 2 and route[1][2] == 2
+    want = ref_simulate(arch, bound, trace, fclk_hz=FCLK, max_cycles=500)
+    out = switch_loop_ref(parch, arr, words, sizes, keys)
+    _assert_sim_equal(sw.sim_result(parch, prep, out, FCLK), want)
+    assert want.delivered_copies > 0
+    # the same through simulate, which hands the loop the header words
+    got = sw.simulate(parch, convert.from_reference(bound), convert.from_reference(trace),
+                      fclk_hz=FCLK, max_cycles=500, device="cpu")
+    _assert_sim_equal(got, want)
+
+
+def test_key_pieces_pack_the_two_keys():
+    from repro_torch.core import dsl as pdsl
+    from repro_torch.core import bind as pbind, ethernet_ipv4_udp
+    for proto in (_multiword(pdsl), ethernet_ipv4_udp()):
+        b = pbind(proto, flit_bits=256)
+        keys = slices(proto, [b.semantics["routing_key"], b.semantics["src_key"]]).baked
+        kp = loop_kernel.key_pieces(keys)
+        back = tuple(tuple((kp.word[f][j], kp.lo[f][j], int(kp.mask[f][j]).bit_length(),
+                            kp.dst[f][j]) for j in range(2) if kp.mask[f][j])
+                     for f in range(2))
+        assert back == keys
+        # a key of one piece: its second reads no word (mask 0)
+        assert all(kp.mask[f][j] == 0 for f in range(2) for j in range(len(keys[f]), 2))
+    assert ctypes.sizeof(loop_kernel.KeyPieces) == 64     # csrc/switch_loop.cu's
+    piece = (0, 0, 4, 0)
+    with pytest.raises(ValueError, match="two pieces"):
+        loop_kernel.key_pieces(((piece,) * 3, (piece,)))
+    with pytest.raises(ValueError, match="two pieces"):
+        loop_kernel.key_pieces(((piece,),))
 
 
 def _hook(kst, pids, out_port, valid, cyc):
@@ -157,9 +224,9 @@ def test_simulate_dispatches_on_the_architecture(monkeypatch):
     sw.simulate(iface, pbound, ptrace, fclk_hz=FCLK, max_cycles=300, device="cpu")
     assert calls == {"ops": 3, "ref": 3}
     # the kernel cannot call the hook: its wrapper refuses the architecture
-    _, arr, keys, sizes = _loop_inputs(base, pbound, ptrace, 100)
+    _, arr, words, sizes, keys = _loop_inputs(base, pbound, ptrace, 100)
     with pytest.raises(ValueError, match='device="cpu"'):
-        loop_kernel.switch_loop_launch(hooked, arr, keys, sizes)
+        loop_kernel.switch_loop_launch(hooked, arr, words, sizes, keys)
     # an identity hook changes nothing but the pipeline latency it adds
     assert got.delivered_copies == plain.delivered_copies
     np.testing.assert_array_equal(got.latency_cycles, plain.latency_cycles)
@@ -170,10 +237,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     bound, trace = _inputs(8)
     arch = convert.from_reference(_arch(ForwardTableKind.FULL_LOOKUP, VOQKind.NXN,
                                         SchedulerKind.RR, 8, 2))
-    _, arr, keys, sizes = _loop_inputs(arch, convert.from_reference(bound),
-                                       convert.from_reference(trace), 100)
+    _, arr, words, sizes, keys = _loop_inputs(arch, convert.from_reference(bound),
+                                              convert.from_reference(trace), 100)
     with pytest.raises(ValueError, match="CUDA"):
-        loop_kernel.switch_loop_launch(arch, arr, keys, sizes)
+        loop_kernel.switch_loop_launch(arch, arr, words, sizes, keys)
     with pytest.raises(ValueError, match="1..32 ports"):
         loop_kernel.plan(dataclasses.replace(arch, n_ports=33), 10)
     with pytest.raises(ValueError, match="banks"):
@@ -246,6 +313,11 @@ def test_chip_smoke_forms_cover_the_kinds_and_placements():
     assert prep["arr_pid"].shape == (want["n_cycles"], 8)
     assert prep["header_words"].shape[0] == want["offered"]
     assert cs.KERNELS["switch_loop"]["main"][0] == "hft_rung4_champion"
+    # the ingress parse's two-piece path: keys past word 0, one across two
+    _, multi, *_ = forms["multiword_keys"]
+    keys = slices(multi.protocol, [multi.semantics["routing_key"],
+                                   multi.semantics["src_key"]]).baked
+    assert max(map(len, keys)) == 2 and min(w for k in keys for w, *_ in k) > 0
 
 
 # --------------------------------------------------------------------------
@@ -262,11 +334,24 @@ def test_cuda_kernel_bitwise_vs_plain(case):
                                         depth=1 if n == 8 else 2))
     bound, trace = _inputs(n)
     dev = torch.device("cuda")
-    _, arr, keys, sizes = _loop_inputs(arch, convert.from_reference(bound),
-                                       convert.from_reference(trace), cycles, dev)
+    _, arr, words, sizes, keys = _loop_inputs(arch, convert.from_reference(bound),
+                                              convert.from_reference(trace), cycles, dev)
     n0 = loop_kernel.LAUNCHES
-    got = switch_loop(arch, arr, keys, sizes)
+    got = switch_loop(arch, arr, words, sizes, keys)
     torch.cuda.synchronize()
     assert loop_kernel.LAUNCHES == n0 + 1
-    for g, w in zip(got, switch_loop_ref(arch, arr, keys, sizes)):
+    for g, w in zip(got, switch_loop_ref(arch, arr, words, sizes, keys)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fwd,voq,sched", MULTIWORD_CASES,
+                         ids=lambda c: getattr(c, "value", c))
+def test_cuda_multiword_ingress_parse_bitwise_vs_plain(fwd, voq, sched):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    *_, parch, (_, arr, words, sizes, keys) = _multiword_inputs(
+        fwd, voq, sched, torch.device("cuda"))
+    got = switch_loop(parch, arr, words, sizes, keys)
+    for g, w in zip(got, switch_loop_ref(parch, arr, words, sizes, keys)):
         assert torch.equal(g, w)

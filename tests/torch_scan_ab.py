@@ -1,11 +1,14 @@
 """Time the crossbar scan and the netsim replay (and the attention kernel at
-llama3.2-1b's prefill) from one tree of the repo, so that two trees can be
-compared on one card; ``--check`` also holds every scan form against its
-plain version, bitwise, over a matrix of shapes.
+llama3.2-1b's prefill, the header parser and the cycle-level switch's
+loop) from one tree of the repo, so that two trees can be compared on one
+card; ``--check`` also holds every scan form against its plain version,
+bitwise, over a matrix of shapes.
 
     python3 tests/torch_scan_ab.py                   # this tree's package
     python3 tests/torch_scan_ab.py --src OTHER/src   # another tree's
     python3 tests/torch_scan_ab.py --check           # + the bitwise matrix
+    python3 tests/torch_scan_ab.py --parts parser,switch   # a subset
+    python3 tests/torch_scan_ab.py --parts parser_plans    # the parser's tiles
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -19,7 +22,19 @@ device time of its kernel alone under ``torch.profiler`` (the wrapper's
 ``ms`` includes what the host does between launches, its port-id check
 among it).  The matrix: n_ports 4, 8, 32, 40 and 300; m 1, 31, 33, 530 and
 3,707; B 7 (not a multiple of the rows a block holds), its first row
-admitting no event and its second every event.
+admitting no event and its second every event.  ``parser``: the header
+parser's forms of ``chip_smoke.py`` (the hft, datacenter and
+Ethernet/IPv4/UDP protocols, every field, at 9,600 and 1,048,576 headers;
+``parse_headers`` and ``parse_kernel`` alone, and bitwise against the plain
+version).  ``switch``: ``switch_loop`` on hft's rung-4 champion at full
+length (97,720 cycles), a call and the kernel alone, in µs a cycle (not
+held to the eager loop here, which takes minutes on the card); it
+takes whichever inputs the tree's ``switch_loop`` takes (parsed keys, or
+the header words and the keys' slices).  ``parser_plans`` (this tree only,
+not in the default parts): the parser kernel alone at hft's and
+Ethernet/IPv4/UDP's 9,600 and 1,048,576 headers under each tile size and
+blocks per SM of ``PARSER_PLANS``, the sweep behind ``kernels/parser``'s
+``TILE_WORDS`` and ``BLOCKS_PER_SM``.
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
@@ -162,6 +177,83 @@ def check_matrix(torch, dev):
     return ok
 
 
+def time_parser(torch, dev, reps):
+    from repro_torch.kernels.parser import parse_headers, parse_ref
+    for name in CS.PARSER_PROTOCOLS:
+        proto = CS.parser_protocol(name)
+        fields = [f.name for f in proto.fields]
+        for b in CS.PARSER_BATCHES:
+            words = CS.parser_words(proto, b, dev)
+            kern = lambda: parse_headers(proto, fields, words)    # noqa: E731
+            equal = bool(torch.equal(kern(), parse_ref(proto, fields, words)))
+            w = words.shape[1]
+            bound_ms = b * (w + len(fields)) * 4 / CS.HBM_BYTES_PER_S * 1e3
+            k_ms = CS.kernel_alone_ms(kern, "parse_kernel", reps)
+            print(json.dumps({"form": f"parser_{name}", "B": b, "words": w,
+                              "fields": len(fields), "ms": cuda_ms(torch, kern, reps),
+                              "kernel_ms": k_ms, "bound_ms": bound_ms,
+                              "bound_share": bound_ms / k_ms, "bitwise_equal": equal}),
+                  flush=True)
+
+
+#: (TILE_WORDS, BLOCKS_PER_SM) of the parser's plan sweep
+PARSER_PLANS = [(tw, bps) for tw in (1536, 3072, 6144, 12288) for bps in (1, 2, 4, 8)]
+
+
+def time_parser_plans(torch, dev, reps):
+    from repro_torch.kernels.parser import parse_headers, parse_ref
+    from repro_torch.kernels.parser import kernel as pk
+    forms = []
+    for name in ("hft", "ethernet_ipv4_udp"):
+        proto = CS.parser_protocol(name)
+        fields = [f.name for f in proto.fields]
+        for b in CS.PARSER_BATCHES:
+            forms.append((f"{name}_B{b}", proto, fields, CS.parser_words(proto, b, dev)))
+    chosen = pk.TILE_WORDS, pk.BLOCKS_PER_SM
+    try:
+        for pk.TILE_WORDS, pk.BLOCKS_PER_SM in PARSER_PLANS:
+            pk.plan.cache_clear()
+            rec = {"form": "parser_plan", "tile_words": pk.TILE_WORDS,
+                   "blocks_per_sm": pk.BLOCKS_PER_SM}
+            for key, proto, fields, words in forms:
+                kern = lambda: parse_headers(proto, fields, words)   # noqa: E731
+                if not torch.equal(kern(), parse_ref(proto, fields, words)):
+                    raise AssertionError(f"parser plan {rec} disagrees at {key}")
+                rec[f"{key}_kernel_ms"] = CS.kernel_alone_ms(kern, "parse_kernel", reps)
+            print(json.dumps(rec), flush=True)
+    finally:
+        pk.TILE_WORDS, pk.BLOCKS_PER_SM = chosen
+        pk.plan.cache_clear()
+
+
+def time_switch(torch, dev, reps):
+    import inspect
+    from repro_torch.kernels.switch_loop import ops as loop_ops
+    from repro_torch.kernels.parser import parse_headers
+    from repro_torch.switch.switch import prepare_cycle_inputs
+    arch, bound, trace, fclk, cycles = CS.switch_loop_forms(dev)["hft_rung4_champion"]
+    prep = prepare_cycle_inputs(arch, bound, trace, fclk, max_cycles=cycles)
+    arr = torch.from_numpy(prep["arr_pid"]).to(dev)
+    words = torch.from_numpy(prep["header_words"]).to(dev)
+    sizes = torch.from_numpy(prep["size_flits"]).to(dev)
+    fields = [bound.semantics["routing_key"], bound.semantics["src_key"]]
+    if len(inspect.signature(loop_ops.switch_loop).parameters) == 5:
+        from repro_torch.kernels.parser import slices
+        args = (arch, arr, words, sizes, slices(bound.protocol, fields).baked)
+    else:                                 # parsed keys, before the parse moved in
+        args = (arch, arr, parse_headers(bound.protocol, fields, words), sizes)
+    kern = lambda: loop_ops.switch_loop(*args)    # noqa: E731
+    got = kern()
+    t = arr.shape[0]
+    ms = cuda_ms(torch, kern, reps)
+    k_ms = CS.kernel_alone_ms(kern, "switch_loop_kernel", reps)
+    # the eager loop takes minutes here; chip_smoke.py holds the kernel to it
+    print(json.dumps({"form": "switch_loop_hft_rung4_champion", "cycles": t, "ms": ms,
+                      "kernel_ms": k_ms, "us_per_cycle": ms * 1e3 / t,
+                      "kernel_us_per_cycle": k_ms * 1e3 / t,
+                      "delivered": int(got.delivered)}), flush=True)
+
+
 def time_flash(torch, dev, reps):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -182,7 +274,11 @@ def main(argv=None):
                     help="the directory holding the repro_torch package to time")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default="scans,flash,parser,switch",
+                    help="comma-separated subset of scans, flash, parser, switch, "
+                         "parser_plans")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     import torch
     if not torch.cuda.is_available():
         print("torch_scan_ab: no CUDA device is available", file=sys.stderr)
@@ -193,8 +289,16 @@ def main(argv=None):
     print(card(), flush=True)
     print(json.dumps({"src": os.path.abspath(args.src)}), flush=True)
     ok = check_matrix(torch, dev) if args.check else True
-    time_scans(torch, dev, args.reps)
-    time_flash(torch, dev, args.reps)
+    if "scans" in parts:
+        time_scans(torch, dev, args.reps)
+    if "flash" in parts:
+        time_flash(torch, dev, args.reps)
+    if "parser" in parts:
+        time_parser(torch, dev, args.reps)
+    if "switch" in parts:
+        time_switch(torch, dev, 3)
+    if "parser_plans" in parts:
+        time_parser_plans(torch, dev, args.reps)
     return 0 if ok else 1
 
 
