@@ -43,14 +43,24 @@ final ``{"ok": true, ...}`` line:
            the bfloat16 bar over seeds 0-31 at the D 128 and llama forms,
            every pair inside it; the SSD kernel at mamba2-780m's prefill
            and a ragged length (atol = rtol = 2e-3; y and the final state);
-           ms per call for both, and the bound.
+           ms per call for both, and the bound; the ring-scan stage-4
+           kernel (end and admit bitwise) at hft's and datacenter's shapes,
+           64 ports (the k=8 fat-tree's edge tier flattened) and 300, at
+           depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
+           SHARED-VOQ incast that drops, each with ms per call and kernel
+           alone, ptxas registers and spills, its chain bound (m steps at
+           the measured step latency) and its bytes bound.
   path     four main paths, each with every kernel's launch counter set to 0
            just before and read just after:
-           (a) run_scenario on the card for hft, datacenter, hft_nsga2 and
-           hft_codesign with the settings their golden reports record
-           (tests/golden/*.json), compared with those reports under the
-           golden harness's rules (restated below); xbar and netsim must
-           launch;
+           (a) run_scenario on the card for hft, datacenter, hft_nsga2,
+           hft_codesign and fattree_dc with the settings their golden
+           reports record (tests/golden/*.json), compared with those
+           reports under the golden harness's rules (restated below), then
+           the four single-switch goldens again with use_kernel="off" (the
+           ring-scan engine; the scenario's fidelity.use_kernel the only
+           field allowed to differ); xbar and netsim must launch (on
+           fattree_dc too), and on the off runs ring_scan must launch and
+           netsim_replay must not;
            (b) run_scenario for hft and datacenter (its trace cut to
            200 µs) at the registry's defaults (back-annotation on: the
            cycle-level switch calibrates the scheduler efficiency) with
@@ -84,6 +94,11 @@ final ``{"ok": true, ...}`` line:
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
            run_netsim; per-stage wall time, kernel ms, peak device memory;
+           the same run_dse with use_kernel="off", every stage-4 result
+           equal to the auto run's (ring_scan ms, stage-4 wall); a k=8
+           fat-tree (32 hosts, fattree_dc's scenario on a 10 ms datacenter
+           trace) under both engines, the reports equal apart from
+           *_time_s;
            and autotune_moe on one full-width qwen3-moe-235b-a22b MoE layer
            (d_model 4096, expert d_ff 1536, 128 experts, top-8; 8 x 1,024
            tokens; the port's seeded init, model_tp 16): stage walls, kernel
@@ -118,7 +133,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("kernels", "path", "scale")
 #: phases that run only when named with --phases
 OPTIONAL_PHASES = ("profile",)
-GOLDEN = ("hft", "datacenter", "hft_nsga2", "hft_codesign")
+GOLDEN = ("hft", "datacenter", "hft_nsga2", "hft_codesign", "fattree_dc")
+#: the goldens run a second time with the ring-scan engine (use_kernel
+#: "off"), against the same reports: the scenario's fidelity.use_kernel is
+#: the only field allowed to differ
+GOLDEN_OFF = ("hft", "datacenter", "hft_nsga2", "hft_codesign")
 #: the cycle-level switch's runs, tests/torch_golden/<name>.{json,npz}:
 #: (registry entry, trace overrides); datacenter's trace is cut from 800 to
 #: 200 µs (149,546 -> 24,203 rung-4 cycles) to keep this script well inside
@@ -459,6 +478,7 @@ def phase_kernels(dev, stats):
     ok &= kernels_flash_cross(dev, stats)
     ok &= kernels_flash_seeds(dev, stats)
     ok &= kernels_ssd(dev, stats)
+    ok &= kernels_ring_scan(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -1213,6 +1233,179 @@ def kernels_ssd(dev, stats):
     return ok
 
 
+#: the ring-scan engine's shapes, name -> (n_ports, m, rows of the mixed
+#: batch): hft's (8 ports, 3,707 events), datacenter's (32 ports, 530), the
+#: k=8 fat-tree's edge tier flattened (64 ports) and 300 ports (the tail in
+#: global memory, port state in shared memory); each at depths 1, 2, 8, 64
+#: and 1,024 for every row, and a batch of mixed depths (0 included: the
+#: degenerate depth the serial fallback takes, whose scan rows still run)
+RING_SHAPES = {"hft": (8, 3707, (1, 2, 8, 64, 1024, 3, 16, 0)),
+               "datacenter": (32, 530, (1, 2, 8, 64, 1024, 3, 16, 0)),
+               "fattree8_edge": (64, 2001, (1, 8, 64, 1024)),
+               "ports300": (300, 777, (1, 2, 8, 1024))}
+RING_DEPTHS = (1, 2, 8, 64, 1024)
+
+
+def ring_chain_step_ns(dev) -> float:
+    """ns of one dependent step of the ring scan (the tail read, the ring
+    read and write, two maxima and the adds), from CHAIN_STEPS of them on
+    one thread, timed with CUDA events."""
+    import torch
+    from repro_torch.kernels.ring_scan import kernel as rk
+    io = torch.tensor([0.0, 1e-8, 0.0, 2e-8, 3e-8, 1e-8], dtype=torch.float64,
+                      device=dev)
+    ring = torch.zeros(64, dtype=torch.float64, device=dev)
+    rk.chain_step(io, ring, 1024, mod=8, depth=8)                 # warm up
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    rk.chain_step(io, ring, CHAIN_STEPS, mod=8, depth=8)
+    e1.record()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(io).all()), io
+    return e0.elapsed_time(e1) * 1e6 / CHAIN_STEPS
+
+
+def _incast_inputs():
+    """A SHARED-VOQ incast that drops: 8 senders hammer ports 0-3 on a 10
+    Gbps link (the reference's shared-cap test trace), stage-4 timeline and
+    service times of four SHARED candidates at depths 8 and 16."""
+    import numpy as np
+    from repro_torch.core import (ForwardTableKind, SchedulerKind, SwitchArch,
+                                  VOQKind, bind, compressed_protocol)
+    from repro_torch.sim.backannotate import annotate
+    from repro_torch.sim.netsim import service_times
+    from repro_torch.sim.timeline import stage4_timeline
+    from repro_torch.traces import Trace
+    n, per_src = 8, 120
+    rng = np.random.default_rng(0)
+    tr = Trace("incast4",
+               np.concatenate([np.arange(per_src) * 2.2e-7 + s * 1e-9
+                               for s in range(n)]),
+               np.concatenate([np.full(per_src, s) for s in range(n)]),
+               np.concatenate([rng.integers(0, 4, per_src) for _ in range(n)]),
+               np.full(n * per_src, 200), n, link_gbps=10.0)
+    bound = bind(compressed_protocol(addr_bits=4, length_bits=6), flit_bits=256)
+    archs = [SwitchArch(n_ports=n, bus_bits=bw, fwd=ForwardTableKind.FULL_LOOKUP,
+                        voq=VOQKind.SHARED, sched=SchedulerKind.RR, voq_depth=d,
+                        addr_bits=4) for bw in (128, 512) for d in (8, 16)]
+    tl4 = stage4_timeline(tr, n, bound.header_bytes, 0.0)
+    svc = np.empty((len(archs), tl4.now.size))
+    pipe = np.empty(len(archs))
+    for b, a in enumerate(archs):
+        svc[b], pipe[b] = service_times(a, annotate(a, bound, source="model"),
+                                        tl4.wire, tr.link_gbps * 1e9)
+    depth = np.array([a.voq_depth for a in archs])
+    return (tl4.now, tl4.src_o.astype(np.int32), tl4.dst_o.astype(np.int32),
+            svc[:, tl4.order], pipe, depth)
+
+
+def ring_kernel_ms(args, n: int, d_max: int, reps: int) -> float:
+    """Device time per call of the ring-scan kernel alone: its launches (one
+    a chunk of rows, as ``ops.ring_scan`` makes them) back to back between
+    CUDA events, without the wrapper's host checks and allocations (and
+    without torch.profiler, which loses some of these short kernels'
+    records)."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.kernels.ring_scan import ring_rows_per_chunk
+    now, src, dst, svc, pipe, depth, mod = args
+    b, m = svc.shape
+    step = ring_rows_per_chunk(n, d_max)
+    smem_tail = rk.tail_in_smem(n)
+    f64 = dict(dtype=torch.float64, device=svc.device)
+    chunks = []
+    for r in range(0, b, step):
+        rows = min(step, b - r)
+        chunks.append((svc[r:r + rows].t().contiguous(), pipe[r:r + rows].contiguous(),
+                       depth[r:r + rows].contiguous(), mod[r:r + rows].contiguous(),
+                       torch.empty((rows, n * n, d_max), **f64),
+                       None if smem_tail else torch.zeros(
+                           (rows, n * n), dtype=torch.int32, device=svc.device),
+                       torch.empty((rows, m), **f64),
+                       torch.empty((rows, m), dtype=torch.uint8, device=svc.device)))
+    lib = rk._lib()
+    stream = torch.cuda.current_stream(svc.device).cuda_stream
+
+    def run():
+        for svc_t, p, d, md, ring, tail, end, adm in chunks:
+            if tail is not None:
+                tail.zero_()
+            check_launch(lib.ring_scan_f64(
+                now.data_ptr(), src.data_ptr(), dst.data_ptr(), svc_t.data_ptr(),
+                p.data_ptr(), d.data_ptr(), md.data_ptr(), ring.data_ptr(),
+                None if tail is None else tail.data_ptr(), end.data_ptr(),
+                adm.data_ptr(), m, svc_t.shape[1], n, d_max, int(smem_tail),
+                stream), "ring_scan")
+    return cuda_ms(run, reps)
+
+
+def kernels_ring_scan(dev, stats):
+    """The ring-scan stage-4 kernel against its plain version, bitwise
+    (end and admit), at each RING_SHAPES shape and depth set and on the
+    incast; ms per call and kernel alone (``ring_kernel_ms``), ptxas
+    registers and spills, the chain bound (m steps at the measured step
+    latency) and the bytes bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.build import _target
+    from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.kernels.ring_scan import ref as rref
+    from repro_torch.kernels.ring_scan import ring_rows_per_chunk, ring_scan
+
+    t_step = ring_chain_step_ns(dev)
+    log = _target("ring_scan").with_suffix(".log")
+    log = log.read_text() if log.exists() else ""
+    cases = []
+    for shape, (n, m, mixed) in RING_SHAPES.items():
+        rng = np.random.default_rng(n)
+        t, src, dst, svc, pipe, _ = timeline(rng, m, n, len(mixed), f64=True)
+        for name, depths in [*((f"d{d}", (d,) * len(mixed)) for d in RING_DEPTHS),
+                             ("mixed", mixed)]:
+            cases.append((shape, name, n, t, src, dst, svc, pipe,
+                          np.asarray(depths)))
+    t, src, dst, svc, pipe, depth = _incast_inputs()
+    cases.append(("incast_shared", "d8_d16", 8, t, src, dst, svc, pipe, depth))
+    ok = True
+    for shape, name, n, t, src, dst, svc, pipe, depth in cases:
+        b, m = svc.shape
+        mod = np.minimum(np.maximum(depth, 1), m).astype(np.int32)
+        d_max = 1 << int(int(mod.max()) - 1).bit_length()
+        T = lambda a: torch.tensor(a, device=dev)          # noqa: E731
+        args = (T(t), T(src), T(dst), T(svc), T(pipe),
+                T(depth.astype(np.int32)), T(mod))
+        kern = lambda: ring_scan(*args, n_ports=n, d_max=d_max)   # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = rref.ring_scan_ref(*args, n_ports=n, d_max=d_max)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        moved = m * (8 + 4 + 4) + b * (8 + 4 + 4) + b * m * (8 + 8 + 1)
+        ops = b * m * 5          # t + pipe, two maxima, + s, oldest > t
+        bound, by = _bound(moved, ops, 8)
+        smem_tail = rk.tail_in_smem(n)
+        rec = {"kernel": "ring_scan", "form": f"ring_{shape}_{name}",
+               "shape": shape, "B": b, "m": m, "n_ports": n, "d_max": d_max,
+               "depths": sorted(set(depth.tolist())),
+               "drops": int((~want[1]).sum()),
+               "chunks": -(-b // ring_rows_per_chunk(n, d_max)),
+               "tail": "shared" if smem_tail else "global",
+               "ms": cuda_ms(kern, reps=5),
+               "kernel_alone_ms": ring_kernel_ms(args, n, d_max, 10),
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "t_step_ns": t_step, "chain_bound_ms": m * t_step * 1e-6,
+               "chain_bound_by": "m steps",
+               "ptxas": _ptxas_entry(log, f"16ring_scan_kernelILi{scan_slots(n)}"
+                                          f"ELb{int(smem_tail)}EE"),
+               "library_ms": None}
+        ok &= _record(stats, rec, got, want)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return ok
+
+
 def _counters():
     """kernel name -> (the module of its wrapper, the counter's name)"""
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1222,8 +1415,10 @@ def _counters():
     from repro_torch.kernels.switch_loop import kernel as slk
     from repro_torch.kernels.parser import kernel as pk
     from repro_torch.kernels.quant_pack import kernel as qk
+    from repro_torch.kernels.ring_scan import kernel as rk
     from repro_torch.kernels.xbar import kernel as xk
     return {"xbar_scan": (xk, "LAUNCHES"), "netsim_replay": (nk, "LAUNCHES"),
+            "ring_scan": (rk, "LAUNCHES"),
             "islip_schedule": (ik, "LAUNCHES"),
             "switch_loop": (slk, "LAUNCHES"),
             "parse_headers": (pk, "LAUNCHES"),
@@ -1252,30 +1447,51 @@ def phase_path(dev, stats):
 
 
 def path_golden(dev, stats):
-    """(a) run_scenario vs the golden reports; xbar and netsim must launch."""
+    """(a) run_scenario vs the golden reports at their settings, then the
+    single-switch goldens again with use_kernel="off".  xbar and netsim
+    must launch (on fattree_dc too); on the off runs ring_scan must launch
+    and netsim_replay must not."""
     from repro_torch.api import Scenario, run_scenario
 
     failures = []
     _reset_counters()
-    for name in GOLDEN:
+    runs = [(name, None) for name in GOLDEN] + [(n, "off") for n in GOLDEN_OFF]
+    for name, use_kernel in runs:
         with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as f:
             want = json.load(f)
+        scen = Scenario.from_dict(want["scenario"])
+        if use_kernel is not None:
+            scen = scen.override(use_kernel=use_kernel)
         before = _read_counters()
-        report = run_scenario(Scenario.from_dict(want["scenario"]), device=dev)
+        report = run_scenario(scen, device=dev)
         got = json.loads(json.dumps(report.to_dict()))
-        errors = diff_reports(got, want)
         after = _read_counters()
-        say("path", scenario=name, best=got["best"], mismatches=len(errors),
-            first_mismatches=errors[:5], wall_s=report.wall_time_s,
-            stage2_s=report.stage2_time_s, stage4_s=report.stage4_time_s,
-            launches={k: after[k] - before[k] for k in after})
+        run = {k: after[k] - before[k] for k in after}
+        errors = []
+        if use_kernel is not None:
+            field = got["scenario"]["fidelity"].pop("use_kernel", None)
+            if field != use_kernel:
+                errors.append(f"scenario.fidelity.use_kernel: {field!r}")
+            if not (run["ring_scan"] > 0 and run["netsim_replay"] == 0):
+                errors.append(f"ring_scan did not run, or netsim_replay did: {run}")
+        elif name == "fattree_dc" and not (run["xbar_scan"] > 0
+                                           and run["netsim_replay"] > 0):
+            errors.append(f"xbar/netsim did not run on the fabric: {run}")
+        errors += diff_reports(got, want)
+        say("path", scenario=name, use_kernel=use_kernel or "as recorded",
+            best=got["best"], mismatches=len(errors), first_mismatches=errors[:5],
+            wall_s=report.wall_time_s, stage2_s=report.stage2_time_s,
+            stage4_s=report.stage4_time_s, launches=run)
         if errors:
-            failures.append(name)
+            failures.append(f"{name} ({use_kernel or 'as recorded'})")
     launches = _read_counters()
-    stats["launches"].update({k: launches[k] for k in ("xbar_scan", "netsim_replay")})
+    stats["launches"].update({k: launches[k] for k in
+                              ("xbar_scan", "netsim_replay", "ring_scan")})
     say("path", path="golden", launches=launches)
-    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0):
-        failures.append(f"xbar/netsim did not run on the golden path: {launches}")
+    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0
+            and launches["ring_scan"] > 0):
+        failures.append(f"xbar/netsim/ring_scan did not run on the golden "
+                        f"path: {launches}")
     return failures
 
 
@@ -1458,13 +1674,17 @@ def path_comm(dev, stats):
     return failures
 
 
-def _kernel_timer(log):
-    """Bracket each launch of the attention and SSD kernels with CUDA events
-    (no host sync) by wrapping their wrappers; returns the undo."""
+def _kernel_timer(log, mods=None):
+    """Bracket each launch of the kernels whose wrappers ``mods`` names
+    (name -> the wrapper's module; default: the attention and SSD kernels)
+    with CUDA events (no host sync) by wrapping the wrappers; returns the
+    undo."""
     import torch
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.ssd import kernel as sk
-    real = {"flash_attention": (fk, fk.flash_attention), "ssd_scan": (sk, sk.ssd_scan)}
+    if mods is None:
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.ssd import kernel as sk
+        mods = {"flash_attention": fk, "ssd_scan": sk}
+    real = {name: (mod, getattr(mod, name)) for name, mod in mods.items()}
 
     def wrap(name, fn):
         def timed(*args, **kw):
@@ -1789,6 +2009,8 @@ def phase_scale(dev, stats):
     stats["scale"].append(rec)
     say("scale", **rec)
     del problem, result, log, svc_t, t_d, src_d, dst_d, pipe_d
+    scale_ring_dse(dev, stats, scen, kw, c4, r4)
+    del c4, r4
 
     # (b) the exhaustive space screen on a 10 ms capture
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1824,7 +2046,132 @@ def phase_scale(dev, stats):
     say("scale", **rec)
     del problem, ev, log
     torch.cuda.empty_cache()
+    scale_fattree(dev, stats)
     scale_moe(dev, stats)
+
+
+def _same_verify(a, b) -> bool:
+    """Two stage-4 results are the same: drops, every metric, the latency
+    arrays bitwise, the fallback flags."""
+    import numpy as np
+    return (a.drop_rate == b.drop_rate and a.p99_latency_ns == b.p99_latency_ns
+            and a.mean_latency_ns == b.mean_latency_ns
+            and a.throughput_gbps == b.throughput_gbps
+            and all(a.meta.get(k) == b.meta.get(k)
+                    for k in ("delivered", "fallback", "shared_cap_fallback"))
+            and all(np.array_equal(a.meta[k], b.meta[k], equal_nan=True)
+                    for k in ("latency_ns", "latency_full_ns")))
+
+
+def scale_ring_dse(dev, stats, scen, kw, c4_auto, r4_auto):
+    """run_dse on the 40 ms hft capture with the ring-scan engine
+    (use_kernel="off"): every stage-4 result equal to the auto run's."""
+    import torch
+    from repro_torch.api import build_problem
+    from repro_torch.core.dse import run_dse
+    from repro_torch.kernels.netsim import kernel as nk
+    from repro_torch.kernels.ring_scan import kernel as rk
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    problem, sla, budget = build_problem(
+        scen.override(trace_params={"duration_s": 0.04}, use_kernel="off"),
+        device=dev)
+    log, events = {}, []
+    _timed(problem, "surrogate_batch", log)
+    _timed(problem, "verify_batch", log)
+    undo = _kernel_timer(events, {"ring_scan": rk})
+    r0, n0 = rk.LAUNCHES, nk.LAUNCHES
+    try:
+        t0 = time.perf_counter()
+        result = run_dse(problem, sla, budget, **kw)
+        t_dse = time.perf_counter() - t0
+    finally:
+        undo()
+    (s2, _, _), = log["surrogate_batch"]
+    (s4, c4, r4), = log["verify_batch"]
+    same = ([c.short() for c in c4] == [c.short() for c in c4_auto]
+            and all(_same_verify(a, b) for a, b in zip(r4, r4_auto)))
+    rec = {"run": "run_dse hft duration_s=0.04 use_kernel=off",
+           "events": len(problem.trace), "stage4_rows": len(c4),
+           "best": result.best.short() if result.best is not None else None,
+           "run_dse_s": t_dse, "stage2_s": s2, "stage4_s": s4,
+           "ring_scan_ms": _kernel_ms(events, 0).get("ring_scan", 0.0),
+           "launches": {"ring_scan": rk.LAUNCHES - r0,
+                        "netsim_replay": nk.LAUNCHES - n0},
+           "stage4_equal_to_auto": same,
+           "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
+    stats["scale"].append(rec)
+    say("scale", **rec)
+    if not same or rec["launches"]["ring_scan"] == 0:
+        raise AssertionError("the ring-scan run_dse differs from the auto run "
+                             "or launched no ring_scan")
+
+
+#: a fabric at a deployment's width: fattree_dc's scenario on a k=8 fat-tree
+#: (32 hosts; 8 edge and 4 core switches of 8 ports), its datacenter trace
+#: on 32 hosts for 10 ms, the protocol's address field widened to 5 bits
+FATTREE8 = {"topology": {"kind": "fattree", "params": {"k": 8}},
+            "trace": {"generator": "datacenter",
+                      "params": {"n_ports": 32, "seed": 0, "duration_s": 0.01}},
+            "addr_bits": 5}
+
+
+def _without_times(doc):
+    """A report with every *_time_s field removed, for exact comparison."""
+    if isinstance(doc, dict):
+        return {k: _without_times(v) for k, v in doc.items()
+                if not k.endswith("_time_s")}
+    if isinstance(doc, list):
+        return [_without_times(v) for v in doc]
+    return doc
+
+
+def scale_fattree(dev, stats):
+    """The k=8 fat-tree under both stage-4 engines: the reports equal apart
+    from *_time_s and fidelity.use_kernel."""
+    import torch
+    from repro_torch.api import Scenario, run_scenario
+    from repro_torch.kernels.netsim import kernel as nk
+    from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.kernels.xbar import kernel as xk
+
+    with open(os.path.join(ROOT, "tests", "golden", "fattree_dc.json")) as f:
+        base = json.load(f)["scenario"]
+    base.update(topology=FATTREE8["topology"], trace=FATTREE8["trace"])
+    base["protocol"]["params"]["addr_bits"] = FATTREE8["addr_bits"]
+    reports = {}
+    for use_kernel in ("auto", "off"):
+        d = json.loads(json.dumps(base))
+        d["fidelity"]["use_kernel"] = use_kernel
+        torch.cuda.reset_peak_memory_stats(dev)
+        counts = (xk.LAUNCHES, nk.LAUNCHES, rk.LAUNCHES)
+        report = run_scenario(Scenario.from_dict(d), device=dev)
+        got = json.loads(json.dumps(report.to_dict()))
+        got["scenario"]["fidelity"].pop("use_kernel", None)
+        reports[use_kernel] = got
+        rec = {"run": f"fattree k=8 datacenter 32 hosts 10 ms use_kernel={use_kernel}",
+               "events": len(report.problem.trace),
+               "stage2_candidates": report.stage2_candidates,
+               "stage4_candidates": report.stage4_candidates,
+               "best": got["best"], "best_verify": got["best_verify"],
+               "wall_s": report.wall_time_s, "stage2_s": report.stage2_time_s,
+               "stage4_s": report.stage4_time_s,
+               "launches": {k: now - then for k, now, then in zip(
+                   ("xbar_scan", "netsim_replay", "ring_scan"),
+                   (xk.LAUNCHES, nk.LAUNCHES, rk.LAUNCHES), counts)},
+               "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
+        stats["scale"].append(rec)
+        say("scale", **rec)
+        del report
+    errors = diff_reports(reports["off"], reports["auto"])
+    if _without_times(reports["off"]) != _without_times(reports["auto"]):
+        errors.append("the reports differ outside *_time_s")
+    say("scale", run="fattree k=8 off vs auto", mismatches=len(errors),
+        first_mismatches=errors[:5])
+    if errors or reports["auto"]["best"] is None:
+        raise AssertionError(f"the k=8 fat-tree differs between the engines: "
+                             f"{errors[:5]}")
+    torch.cuda.empty_cache()
 
 
 def scale_moe(dev, stats):
@@ -2103,6 +2450,12 @@ KERNELS = {
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd.cu",
                  "replaces": "src/repro/kernels/ssd/kernel.py:65",
                  "main": ("x_bf16_bc_bf16", "mamba_prefill")},
+    # stage 4 with use_kernel="off" (the goldens' off runs): hft's shape, a
+    # batch of mixed sized depths; the reference runs it as a lax.scan (no
+    # Pallas counterpart)
+    "ring_scan": {"source": "src/repro_torch/csrc/ring_scan.cu",
+                  "replaces": "src/repro/sim/batched_netsim.py:75 (lax.scan)",
+                  "main": ("ring_hft_mixed", "hft")},
 }
 
 

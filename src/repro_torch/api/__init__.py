@@ -6,7 +6,7 @@ scenarios; ``run_scenario``/``run_campaign`` execute one or many on a CUDA
 device (``device="cpu"`` for the kernels' plain versions);
 ``repro_torch.api.cli`` is the ``python -m repro_torch`` entry point.  The
 port of the JAX package's ``api`` without its serving engine
-(``service.py``, ROADMAP queue 1, item 9).
+(``service.py``, ROADMAP queue 1, item 2).
 """
 
 from .registry import ScenarioRegistry, registry

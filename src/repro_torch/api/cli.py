@@ -3,17 +3,22 @@
 
     python -m repro_torch list                          # registry scenarios
     python -m repro_torch show hft                      # dump a scenario as JSON
+    python -m repro_torch ingest capture.csv -o capture.npz   # pcap/CSV -> Trace
+    python -m repro_torch ingest lan.pcap --stage "filter:min_payload=64" \
+        --stage "incast:dst=0,n_senders=6,n_packets=128" --seed 7
     python -m repro_torch run hft --sla-p99-ns 5000     # one scenario, with overrides
     python -m repro_torch run my_scenario.json --out report.json
     python -m repro_torch run hft --search nsga2 --generations 10 --search-seed 0
     python -m repro_torch run hft --search nsga2 --co-design
+    python -m repro_torch run fattree_dc                # a fat-tree fabric
+    python -m repro_torch run hft --use-kernel off      # the ring-scan engine
     python -m repro_torch sweep hft underwater industry # campaign over registry names
     python -m repro_torch sweep --config campaign.json  # campaign from a config file
 
 Every subcommand that runs takes ``--device`` (default ``cuda``: the port
 runs on the card and raises without one; ``--device cpu`` runs the kernels'
-plain PyTorch versions).  ``check``, ``lint``, ``ingest`` and ``serve`` are
-not registered until their slices of the port land (ROADMAP queue 1).
+plain PyTorch versions).  ``check``, ``lint`` and ``serve`` are not
+registered until their slice of the port lands (ROADMAP queue 1, item 2).
 
 Campaign config schema (JSON): either a plain list of entries or
 ``{"name": ..., "scenarios": [...]}``; each entry is a registry name, a full
@@ -25,12 +30,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 __all__ = ["main", "build_parser", "resolve_entry", "load_campaign_config"]
 
 PROG = "python -m repro_torch"
+#: exit code for input that never became runnable (malformed capture/stage)
+EXIT_USAGE = 2
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +293,47 @@ def _mesh_from_args(args):
     return None if spec.is_single() else spec
 
 
+def _split_stage_params(s: str):
+    """Split ``key=val,key=val`` on top-level commas only, so JSON list/dict
+    values (``ports=[0,1]``, ``mapping={"3": 0}``) pass through intact."""
+    out, cur, depth = [], [], 0
+    for ch in s:
+        if ch in "[{(":
+            depth += 1
+        elif ch in "]})":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        out.append("".join(cur))
+    return out
+
+
+def _parse_stage(spec: str):
+    """CLI ``--stage kind:key=val,...`` -> (kind, params).  Values parse as
+    JSON literals, else strings; syntax errors raise ``ValueError`` so
+    ``ingest`` can exit with the usage code (2)."""
+    kind, _, rest = spec.partition(":")
+    if not kind:
+        raise ValueError(f"--stage {spec!r}: empty stage kind")
+    params: Dict[str, Any] = {}
+    for item in _split_stage_params(rest):
+        if not item.strip():
+            continue
+        if "=" not in item:
+            raise ValueError(
+                f"--stage {spec!r}: expected key=value, got {item!r}")
+        k, v = item.split("=", 1)
+        try:
+            params[k.strip()] = json.loads(v)
+        except json.JSONDecodeError:
+            params[k.strip()] = v
+    return kind, params
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=PROG,
@@ -298,6 +347,32 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("show", help="dump a scenario spec as JSON")
     sp.add_argument("scenario", help="registry name or .json path")
+
+    ip = sub.add_parser(
+        "ingest",
+        help="pcap/CSV capture -> Trace .npz, through a declarative stage "
+             "pipeline (filter/remap_ports/rescale_time/clip) plus "
+             "generative stressors (incast/zipf_drift/diurnal); exits 0 "
+             "ok / 2 malformed input")
+    ip.add_argument("capture", help="input .pcap/.cap or .csv path")
+    ip.add_argument("-o", "--out", default=None, metavar="FILE",
+                    help="output .npz path (default: capture stem + .npz)")
+    ip.add_argument("--name", default=None,
+                    help="trace name recorded in the .npz (default: stem)")
+    ip.add_argument("--n-ports", type=int, default=None,
+                    help="declared endpoint count (default: inferred from "
+                         "the max src/dst id seen)")
+    ip.add_argument("--link-gbps", type=float, default=100.0,
+                    help="link rate the trace models (default 100)")
+    ip.add_argument("--stage", action="append", metavar="KIND[:K=V,...]",
+                    help="pipeline stage, repeatable and order-preserving; "
+                         "values are JSON literals, e.g. "
+                         "--stage 'clip:max_packets=1000' "
+                         "--stage 'incast:dst=0,n_senders=4,n_packets=64'")
+    ip.add_argument("--seed", type=int, default=0,
+                    help="pipeline seed; stage i draws an independent "
+                         "stream from (seed, i), so results are "
+                         "bit-reproducible")
 
     rp = sub.add_parser("run", help="run one scenario")
     rp.add_argument("scenario", help="registry name or .json path")
@@ -364,6 +439,30 @@ def _cmd_run(args) -> int:
     return 0 if report.best is not None else 1
 
 
+def _cmd_ingest(args) -> int:
+    from repro_torch.traces.ingest import Pipeline, ingest
+    try:
+        pipe = Pipeline(seed=args.seed)
+        for spec in args.stage or ():
+            kind, params = _parse_stage(spec)
+            pipe = pipe.then(kind, **params)
+        tr = ingest(args.capture,
+                    pipeline=pipe if pipe.stages else None,
+                    name=args.name, n_ports=args.n_ports,
+                    link_gbps=args.link_gbps)
+    except (ValueError, OSError) as e:
+        # malformed capture/stage input is a usage error (2), as in the
+        # reference's ``spac ingest``
+        print(f"{PROG} ingest: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    out = args.out or (os.path.splitext(args.capture)[0] + ".npz")
+    tr.save(out)
+    dur_us = ((tr.time_s[-1] - tr.time_s[0]) * 1e6) if len(tr.time_s) else 0.0
+    print(f"wrote {out}: {len(tr.time_s)} packets, {tr.n_ports} ports, "
+          f"{dur_us:.1f} us span, {tr.link_gbps:g} Gbps")
+    return 0
+
+
 def _cmd_sweep(args) -> int:
     from .runner import run_campaign
     if args.config:
@@ -389,8 +488,8 @@ def _cmd_sweep(args) -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"list": _cmd_list, "show": _cmd_show, "run": _cmd_run,
-            "sweep": _cmd_sweep}[args.cmd](args)
+    return {"list": _cmd_list, "show": _cmd_show, "ingest": _cmd_ingest,
+            "run": _cmd_run, "sweep": _cmd_sweep}[args.cmd](args)
 
 
 if __name__ == "__main__":

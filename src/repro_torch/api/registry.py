@@ -10,10 +10,9 @@ gradient-bucket exchange (``CommDSEProblem``).
 ``registry`` is the module-level pre-populated instance; user code can
 ``registry.register(...)`` its own scenarios (examples do).
 
-The port's copy of the JAX package's ``api/registry.py``, with every entry.
-The port runs the switch entries without a topology; ``fattree_dc`` (a
-fabric) and the comm entries are listed and shown but raise
-``NotImplementedError`` when run (ROADMAP queue 1, items 7 and 10).
+The port's copy of the JAX package's ``api/registry.py``, with every entry;
+every entry runs: the switch entries, ``fattree_dc`` (a fabric of switches,
+``repro_torch.fabric``) and the comm entries (their fabric on one device).
 """
 
 from __future__ import annotations

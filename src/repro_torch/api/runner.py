@@ -19,10 +19,10 @@ trace + feature analysis.  The campaign report carries aggregate stage-2
 The port's copy of the JAX package's ``api/runner.py``.  Every entry point
 takes ``device`` (default: the first CUDA device; raises without one),
 where the batched stages, back-annotation and the cycle-level switch run.
-Single-switch and comm-domain scenarios run here; a scenario with a
-topology (ROADMAP queue 1, item 7) or a mesh (item 8) raises
-``NotImplementedError``, as do search checkpoints.  (A comm scenario runs
-its fabric on one device whatever its mesh, as in the reference.)
+Single-switch, fabric and comm-domain scenarios run here; a scenario with a
+mesh raises ``NotImplementedError`` (ROADMAP queue 1, item 3: mesh), as do
+search checkpoints (item 1).  (A comm scenario runs its fabric on one
+device whatever its mesh, as in the reference.)
 """
 
 from __future__ import annotations
@@ -161,11 +161,37 @@ def build_problem(
         # the scenario's mesh
         return _build_comm_problem(scenario, device), scenario.sla, budget
     from repro_torch.sim.switch_problem import SwitchDSEProblem
-    if scenario.topology is not None:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r}: multi-hop fabrics (FabricDSEProblem) "
-            "are not ported to repro_torch yet (ROADMAP queue 1, item 7)")
     tr = trace if trace is not None else scenario.trace.build()
+    if scenario.topology is not None:
+        from repro_torch.fabric import FabricDSEProblem
+        topo = scenario.topology.build()
+        if scenario.co_design:
+            if scenario.search is None:
+                raise ValueError(
+                    f"scenario {scenario.name!r}: co_design joint spaces are "
+                    "generational-search territory — set a SearchSpec "
+                    "(spac run --co-design --search nsga2)")
+            problem = FabricDSEProblem(
+                topo, scenario.arch, None, tr,
+                back_annotation=scenario.fidelity.back_annotation,
+                features=features,
+                verify_engine=scenario.fidelity.verify_engine,
+                use_kernel=scenario.fidelity.use_kernel,
+                protocol_space=scenario.protocol.space(),
+                binding=scenario.semantic_binding(),
+                flit_bits=scenario.flit_bits,
+                mesh=mesh, device=device)
+            return problem, scenario.sla, budget
+        bound = build_bound(scenario)
+        _validate_addressing(scenario, bound)
+        problem = FabricDSEProblem(
+            topo, scenario.arch, bound, tr,
+            back_annotation=scenario.fidelity.back_annotation,
+            features=features,
+            verify_engine=scenario.fidelity.verify_engine,
+            use_kernel=scenario.fidelity.use_kernel,
+            mesh=mesh, device=device)
+        return problem, scenario.sla, budget
     if scenario.co_design:
         if scenario.search is None:
             raise ValueError(

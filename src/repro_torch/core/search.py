@@ -498,8 +498,8 @@ class NSGA2Search:
 # --------------------------------------------------------------------------
 
 _CHECKPOINT_TODO = ("search checkpoints and remeshing are not ported to "
-                    "repro_torch yet (ROADMAP queue 1, item 8: mesh and "
-                    "checkpoints)")
+                    "repro_torch yet (ROADMAP queue 1, item 1: checkpoints, "
+                    "and item 3: mesh)")
 
 
 def save_search_state(ckpt_dir: str, engine: NSGA2Search, mesh=None) -> str:

@@ -11,7 +11,7 @@ routes are part of the golden-report contract).
 
 Port numbering inside a node is local (``0..degree-1``); the multi-hop
 evaluator flattens a whole tier into one super-switch by
-``flat = node * degree + local`` (see the JAX package's ``repro.fabric.evaluate``; not ported yet), so every
+``flat = node * degree + local`` (see ``repro_torch.fabric.evaluate``), so every
 local port id must stay below the tier's degree.
 
 :class:`TopologySpec` is the JSON-round-trippable half (``Scenario.topology``

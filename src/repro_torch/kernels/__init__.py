@@ -2,6 +2,7 @@
 
   xbar/    - greedy-crossbar contention scan (stage 2)
   netsim/  - admission-gated port replay and the fixed point (stage 4)
+  ring_scan/ - the finite-VOQ ring scan (stage 4 with use_kernel="off")
   islip/   - batched iSLIP matching (the eager loop's scheduler step)
   switch_loop/ - the cycle-level switch, every cycle in one launch
   parser/  - protocol header field extraction (the switch's ingress)

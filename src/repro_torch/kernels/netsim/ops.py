@@ -56,8 +56,8 @@ def kernel_available() -> bool:
     """Whether ``use_kernel="auto"`` resolves to the kernel path.
 
     An environment kill-switch, not a capability probe, as in the JAX
-    package: ``SPAC_NETSIM_KERNEL=off`` selects the ring-scan engine, which
-    is not ported yet (``sim.batched_netsim`` raises for it)."""
+    package: ``SPAC_NETSIM_KERNEL=off`` selects the ring-scan engine
+    (``repro_torch.kernels.ring_scan``)."""
     return os.environ.get("SPAC_NETSIM_KERNEL", "").lower() not in {
         "0", "off", "false", "no"}
 

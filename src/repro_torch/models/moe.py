@@ -22,7 +22,7 @@ on tensors of one device.  The reference runs the layer inside
 ``shard_map`` over the runner's (1, 1) mesh, where every collective (the
 all-to-alls, the all-gathers, ``psum``/``pmean``) is the identity; the port
 runs the same arithmetic without them, and a mesh with an axis above 1
-raises ``NotImplementedError`` (ROADMAP queue 1, item 8).  On one device
+raises ``NotImplementedError`` (ROADMAP queue 1, item 3: mesh).  On one device
 ``weights="ff_sharded"`` computes what ``"gathered"`` does, as in the
 reference on its (1, 1) mesh.
 
@@ -94,7 +94,7 @@ def check_single_device(mesh: Optional[Mapping[str, int]]) -> None:
         raise NotImplementedError(
             f"mesh axes {big}: the multi-device MoE fabric (all-to-all over "
             "the tensor axis) is not ported to repro_torch yet (ROADMAP queue "
-            "1, item 8); run on one device with mesh=None")
+            "1, item 3: mesh); run on one device with mesh=None")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig,

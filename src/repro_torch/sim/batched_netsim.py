@@ -6,18 +6,25 @@ whole sized-candidate batch against the *shared* event timeline, with every
 per-candidate parameter — bus width, η, pipeline/arbitration cycles, ingress
 stalls, f_clk and the stage-3 **sized VOQ depths** — as a batch axis.
 
-The engine is the JAX package's segmented-kernel path
-(``use_kernel="auto"``, its default): the speculative fixed point of
-``repro_torch.kernels.netsim``.  Round 1 replays every row with all packets
-admitted (the hand-written CUDA kernel on the card) and checks on the
-device whether any VOQ would have been full; rows that dropped iterate a
-gated replay against host-side segmented admission until they close.  The
-JAX package's other engine, the ``[B, N², D]`` ring scan selected by
-``use_kernel="off"``, is not ported yet and raises here.
+Two engines, as in the JAX package, selected by ``use_kernel``:
+
+* the ring scan (``use_kernel=False``/``"off"``, the default): one float64
+  scan over the timeline in which a ``[B, N², D]`` ring of departure times,
+  indexed by admission count, answers each VOQ's fullness check in O(1) —
+  departures inside a VOQ are FIFO, so "queue (i,j) holds ``depth``
+  undeparted packets at t" is "the packet admitted ``depth`` admissions
+  ago has not departed by t", and the slot an admission is about to
+  overwrite *is* that packet.  On the card it is the hand-written kernel
+  of ``repro_torch.kernels.ring_scan``.
+* the segmented-kernel engine (``"auto"``/``"on"``/True): the speculative
+  fixed point of ``repro_torch.kernels.netsim``.  Round 1 replays every row
+  with all packets admitted (the CUDA kernel on the card) and checks on the
+  device whether any VOQ would have been full; rows that dropped iterate a
+  gated replay against host-side segmented admission until they close.
 
 ``VOQKind.SHARED`` adds a global cap (``N·depth`` packets in flight across
 the whole buffer) whose count is *not* FIFO across queues, so it is settled
-exactly in a second, host-side pass: the replay runs unconstrained by the
+exactly in a second, host-side pass: the engine runs unconstrained by the
 cap, then for each shared candidate the in-flight timeline ``G(t_k) =
 admitted-before-k − #(ends ≤ t_k)`` is reconstructed vectorially (one sort +
 searchsorted).  If the cap was never reached at an admitted event, the
@@ -26,7 +33,7 @@ the rare candidates whose cap does bind fall back to the serial heapq
 oracle — exact by definition, and flagged in ``meta["shared_cap_fallback"]``
 so throughput reports stay honest.
 
-The replay runs in float64 and shares ``service_times`` /
+Both engines run in float64 and share ``service_times`` /
 ``switch_arrival_times`` with the serial path, so admission decisions, drop
 counts and departure times are bit-identical to ``run_netsim``.
 
@@ -49,6 +56,8 @@ from repro_torch.core.binding import BoundProtocol
 from repro_torch.core.dse import VerifyResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels.netsim import netsim_fixed_point, resolve_use_kernel
+from repro_torch.kernels.netsim.ops import _on
+from repro_torch.kernels.ring_scan import ring_scan
 
 from .backannotate import HardwareParams, annotate
 from .netsim import NetSimConfig, run_netsim, service_times
@@ -121,6 +130,75 @@ def _metrics_result(end_b, admit_b, order, t0, wire_e, t0_min, cfg, hw,
               "delivered": int(done.sum()),
               "offered": int(m), "hw": hw, "engine": "batched_netsim"},
     )
+
+
+def _run_group(archs, bounds, trace, hw_list, cfg,
+               device) -> List[VerifyResult]:
+    """The ring-scan engine.  All candidates share n_ports *and* header
+    wire-bytes; every other parameter is a batch axis.  The header width is
+    structural here — unlike stage 2, the event timeline (host-NIC
+    serialisation) depends on wire size, so mixed-header co-design batches
+    are partitioned by ``header_bytes`` upstream and each partition shares
+    one timeline."""
+    n = archs[0].n_ports
+    tl4 = stage4_timeline(trace, n, bounds[0].header_bytes, cfg.prop_delay_s)
+    t0 = tl4.t0
+    m = t0.size
+    wire = tl4.wire
+    link_bps = trace.link_gbps * 1e9
+    b_n = len(archs)
+    if m == 0:
+        return [_empty_result(hw) for hw in hw_list]
+
+    svc = np.empty((b_n, m), np.float64)
+    pipe = np.empty(b_n, np.float64)
+    depth = np.empty(b_n, np.int64)
+    for b, (arch, hw) in enumerate(zip(archs, hw_list)):
+        svc[b], pipe[b] = service_times(arch, hw, wire, link_bps)
+        depth[b] = arch.voq_depth
+
+    order = tl4.order                          # == the heap's (time, pkt) order
+    now = tl4.now
+    # ring modulus: a queue never holds more than min(depth, m) packets; the
+    # ring size rounds up to a power of two, as in the JAX package
+    mod = np.minimum(np.maximum(depth, 1), m).astype(np.int32)
+    d_max = 1 << int(int(mod.max()) - 1).bit_length()
+    end, admit = ring_scan(
+        _on(now, np.float64, device), _on(tl4.src_o, np.int32, device),
+        _on(tl4.dst_o, np.int32, device), _on(svc[:, order], np.float64, device),
+        _on(pipe, np.float64, device), _on(depth.astype(np.int32), np.int32, device),
+        _on(mod, np.int32, device), n_ports=n, d_max=d_max)
+    end = end.cpu().numpy()
+    admit = admit.cpu().numpy()
+
+    # one batched sort replaces the per-candidate np.sort the shared-cap
+    # check used to run inside the loop below
+    sorted_ends = _sorted_admitted_ends(
+        end, admit,
+        [b for b in range(b_n)
+         if archs[b].voq is VOQKind.SHARED and int(depth[b]) >= 1])
+    out: List[VerifyResult] = []
+    for b, (arch, bound, hw) in enumerate(zip(archs, bounds, hw_list)):
+        fallback = None
+        if int(depth[b]) < 1:
+            # degenerate depth<=0: serial semantics drop every packet; the
+            # scan's ring check can't express an always-full queue
+            fallback = "degenerate_depth"
+        elif arch.voq is VOQKind.SHARED and not _shared_cap_ok(
+                admit[b], sorted_ends[b], now, n * int(depth[b])):
+            # the global cap binds for this candidate: the per-queue-only scan
+            # diverges
+            fallback = "shared_cap"
+        if fallback is not None:
+            # replay through the exact serial oracle, flagged for honesty
+            v = run_netsim(arch, bound, trace, hw=hw, cfg=cfg)
+            v.meta["shared_cap_fallback"] = fallback == "shared_cap"
+            v.meta["fallback"] = fallback
+            out.append(v)
+            continue
+        out.append(_metrics_result(end[b], admit[b], order, t0, tl4.wire_e,
+                                   tl4.t0_min, cfg, hw, m))
+    return out
 
 
 def _run_group_kernel(archs, bounds, trace, hw_list, cfg,
@@ -225,7 +303,7 @@ def run_netsim_batched(
     cfg: Optional[NetSimConfig] = None,
     back_annotation: bool = True,
     i_burst: float = 1.0,
-    use_kernel="auto",
+    use_kernel=False,
     device=None,
 ) -> List[VerifyResult]:
     """Verify a whole sized-candidate batch against one shared trace.
@@ -239,22 +317,19 @@ def run_netsim_batched(
     both), so mixed batches are partitioned internally by
     ``(n_ports, header_bytes)`` and stitched back in input order.
 
-    ``use_kernel`` (``"auto"``/``"on"``/``"off"`` or a bool; auto = on unless
-    ``SPAC_NETSIM_KERNEL=off``) must resolve to on: the segmented-kernel
-    engine is the one this package has.  The ring-scan engine ``off``
-    selects is not ported yet and raises ``NotImplementedError``.
+    ``use_kernel`` selects the segmented-kernel engine (``"auto"``/``"on"``/
+    ``"off"`` or a bool; auto = on unless ``SPAC_NETSIM_KERNEL=off``): the
+    speculative fixed point of ``repro_torch.kernels.netsim`` replaces the
+    ring scan, bit-identical per candidate.  The default is the ring scan,
+    as in the JAX package; its ``[B, N², min(max_depth, m)]`` float64 ring
+    runs in chunks of rows under ``kernels.ring_scan.RING_BUDGET_BYTES``.
 
     ``device`` (default: the first CUDA device; raises without one) is where
-    the replay runs: the hand-written CUDA kernel on a card, its plain
-    PyTorch version for ``device="cpu"``.
+    the engine runs: the hand-written CUDA kernels on a card, their plain
+    PyTorch versions for ``device="cpu"``.
     """
     if cfg is None:
         cfg = NetSimConfig()
-    if not resolve_use_kernel(use_kernel):
-        raise NotImplementedError(
-            "use_kernel resolving to off selects the [B, N^2, D] ring-scan "
-            "engine, which is not ported to repro_torch yet (ROADMAP queue 2); "
-            "use use_kernel='auto' or 'on' (and unset SPAC_NETSIM_KERNEL=off)")
     device = resolve_device(device)
     archs = list(archs)
     bounds = (list(bound) if isinstance(bound, (list, tuple))
@@ -277,16 +352,17 @@ def run_netsim_batched(
         raise ValueError(f"hw has {len(hw)} entries for {len(archs)} archs; "
                          "they must be index-aligned")
 
+    runner = (_run_group_kernel if resolve_use_kernel(use_kernel)
+              else _run_group)
     groups: Dict[Tuple[int, int], List[int]] = {}
     for i, a in enumerate(archs):
         groups.setdefault((a.n_ports, bounds[i].header_bytes), []).append(i)
     if len(groups) == 1:
-        return _run_group_kernel(archs, bounds, trace, hw, cfg, device)
+        return runner(archs, bounds, trace, hw, cfg, device)
     out: List[Optional[VerifyResult]] = [None] * len(archs)
     for idx in groups.values():
-        part = _run_group_kernel([archs[i] for i in idx],
-                                 [bounds[i] for i in idx], trace,
-                                 [hw[i] for i in idx], cfg, device)
+        part = runner([archs[i] for i in idx], [bounds[i] for i in idx],
+                      trace, [hw[i] for i in idx], cfg, device)
         for i, v in zip(idx, part):
             out[i] = v
     return out

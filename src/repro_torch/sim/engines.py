@@ -19,7 +19,7 @@ runs, and where back-annotation runs the cycle-level switch.
       2   batched_surrogate  one contention scan (CUDA), B at once   ~ms/batch
       2   batched_surrogate[kernel]  + segmented occupancy kernel    ~ms/batch
       3   netsim             finite buffers, drops, retransmission   ~100ms
-      3   batched_netsim     the same model, one ring scan (not ported: raises)
+      3   batched_netsim     the same model, one ring scan (CUDA)    ~ms/cand
       3   batched_netsim[kernel]  segmented fixed-point kernel       ~µs/cand
       4   cycle              cycle-accurate switch datapath          ~s
 
@@ -291,8 +291,7 @@ register_engine(
     doc="finite-buffer event-driven verifier (drops, retransmission)")
 register_engine(
     "batched_netsim", 3, _batched_netsim_evaluate, _batched_netsim_batch,
-    doc="the finite-buffer verifier as one ring scan, sized depths batched "
-        "(not ported: raises NotImplementedError)")
+    doc="the finite-buffer verifier as one ring scan, sized depths batched")
 register_engine(
     "batched_netsim[kernel]", 3, _batched_netsim_kernel_evaluate,
     _batched_netsim_kernel_batch,

@@ -145,7 +145,7 @@ class SwitchDSEProblem(DSEProblem):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported to repro_torch yet (ROADMAP "
-                "queue 1, item 8); pass mesh=None")
+                "queue 1, item 3: mesh); pass mesh=None")
         if not isinstance(use_kernel, bool) and use_kernel not in USE_KERNEL_MODES:
             raise ValueError(f"unknown use_kernel {use_kernel!r}; "
                              f"known: {USE_KERNEL_MODES} or a bool")

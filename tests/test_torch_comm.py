@@ -307,10 +307,10 @@ def test_int8_payload_goes_through_quant_pack(monkeypatch):
 
 def test_mesh_extent_above_one_raises():
     layer = _layer()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3: mesh"):
         apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN,
                   {"data": 1, "model": 2}, layer.x)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3: mesh"):
         CommDSEProblem(layer.params, layer.cfg, SINGLE_POD_PLAN,
                        {"data": 4, "model": 1}, layer.x)
     y, _ = apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN,

@@ -8,8 +8,7 @@ candidate lists, bound layouts, trace arrays from every generator, resource
 reports, trace features and the serial stage-2/stage-4 oracles are equal,
 floats bitwise.  The port imports neither ``jax`` nor ``repro``, runs on
 the card unless told otherwise, and refuses what it has not ported yet
-(the ring-scan engine, mesh sharding, fabrics, the comm domain and search
-checkpoints).
+(mesh sharding and search checkpoints).
 """
 
 import jax
@@ -228,18 +227,20 @@ def test_unported_paths_raise_not_implemented():
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         pcore.run_dse(prob, pcore.SLA(), pcore.ResourceBudget({}), mesh=2)
-    with pytest.raises(NotImplementedError, match="ring-scan"):
-        psim.run_netsim_batched(pcore.enumerate_candidates(req)[:1], bound, tr,
-                                back_annotation=False, use_kernel="off",
-                                device="cpu")
-    from repro_torch.api import registry as port_registry, run_scenario
-    # the comm domain is ported (tests/test_torch_comm.py); fabrics are not
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_scenario(port_registry["fattree_dc"], device="cpu")
+    # the ring-scan engine and fabrics are ported (tests/test_torch_ring_scan.py,
+    # tests/test_torch_fabric.py): no refusal
+    [v] = psim.run_netsim_batched(pcore.enumerate_candidates(req)[:1], bound,
+                                  tr, back_annotation=False, use_kernel="off",
+                                  device="cpu")
+    assert v.meta["engine"] == "batched_netsim"
+    from repro_torch.api import build_problem, registry as port_registry, run_scenario
+    from repro_torch.fabric import FabricDSEProblem
+    problem, _, _ = build_problem(port_registry["fattree_dc"], device="cpu")
+    assert isinstance(problem, FabricDSEProblem)
     with pytest.raises(NotImplementedError, match="mesh"):
         run_scenario(port_registry["hft"].override(devices=2), device="cpu")
     for fn, args in ((psearch.save_search_state, ("d", None)),
                      (psearch.load_search_state, ("d", None, None)),
                      (psearch.remesh_search_state, ({}, {}))):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 1"):
             fn(*args)

@@ -341,18 +341,23 @@ def test_empty_trace():
 
 
 def test_ring_scan_engine_is_refused_and_cpu_never_launches():
+    """``use_kernel="off"`` (the ring scan, once refused here, ported since)
+    runs on the CPU and equals the segmented-kernel engine; neither engine
+    launches a CUDA kernel for CPU tensors."""
+    from repro_torch.kernels.ring_scan import kernel as ring_kernel
     tr = convert.from_reference(hft(seed=0).head(128))
     cands = convert.from_reference(
         [a.with_depth(4) for a in
          enumerate_candidates(ArchRequest(n_ports=8, addr_bits=4))[:2]])
-    with pytest.raises(NotImplementedError, match="ring-scan"):
-        run_netsim_batched(cands, convert.from_reference(BOUND), tr,
-                           back_annotation=False, use_kernel="off",
-                           device="cpu")
-    port_kernel.LAUNCHES = 0
-    run_netsim_batched(cands, convert.from_reference(BOUND), tr,
-                       back_annotation=False, device="cpu")
-    assert port_kernel.LAUNCHES == 0
+    port_kernel.LAUNCHES = ring_kernel.LAUNCHES = 0
+    off = run_netsim_batched(cands, convert.from_reference(BOUND), tr,
+                             back_annotation=False, use_kernel="off",
+                             device="cpu")
+    on = run_netsim_batched(cands, convert.from_reference(BOUND), tr,
+                            back_annotation=False, use_kernel="on",
+                            device="cpu")
+    _assert_identical(off, on)
+    assert port_kernel.LAUNCHES == 0 and ring_kernel.LAUNCHES == 0
 
 
 # --------------------------------------------------------------------------

@@ -9,6 +9,7 @@ bitwise, over a matrix of shapes.
     python3 tests/torch_scan_ab.py --check           # + the bitwise matrix
     python3 tests/torch_scan_ab.py --parts parser,switch   # a subset
     python3 tests/torch_scan_ab.py --parts parser_plans    # the parser's tiles
+    python3 tests/torch_scan_ab.py --parts ring            # the ring-scan engine
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -34,7 +35,13 @@ the header words and the keys' slices).  ``parser_plans`` (this tree only,
 not in the default parts): the parser kernel alone at hft's and
 Ethernet/IPv4/UDP's 9,600 and 1,048,576 headers under each tile size and
 blocks per SM of ``PARSER_PLANS``, the sweep behind ``kernels/parser``'s
-``TILE_WORDS`` and ``BLOCKS_PER_SM``.
+``TILE_WORDS`` and ``BLOCKS_PER_SM``.  ``ring`` (not in the default
+parts): the ring-scan stage-4 kernel at ``chip_smoke.py``'s
+``RING_SHAPES`` in their mixed-depth form, the kernel alone over 3 calls
+after half a second idle (``kernel_ms_cold``), over 3 calls just after
+~0.2 s of a busy one-thread kernel (``kernel_ms_warm``) and over 300
+calls (``kernel_ms_300``), and a call (``ms``): a kernel this short is
+timed on a card whose clocks may not have ramped up.
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
@@ -70,7 +77,8 @@ MATRIX_PORTS = (4, 8, 32, 40, 300)
 MATRIX_M = (1, 31, 33, 530, 3707)
 MATRIX_B = 7
 #: kernel names of the scans in this tree and in the trees before it
-SCAN_KERNELS = ("port_scan", "xbar_scan_kernel", "netsim_replay_kernel")
+SCAN_KERNELS = ("port_scan", "xbar_scan_kernel", "netsim_replay_kernel",
+                "ring_scan_kernel")
 
 
 def card():
@@ -92,17 +100,23 @@ def cuda_ms(torch, fn, reps):
 
 
 def kernel_ms(torch, fn, reps):
-    """Device time of the scan kernels alone per call, under torch.profiler."""
+    """Device time of the scan kernels alone per call, under torch.profiler;
+    a window that lost kernel records (a count that is not a whole number
+    per call) is retaken, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if any(k in e.key for k in SCAN_KERNELS))
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if any(k in e.key for k in SCAN_KERNELS)]
+        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                 for e in hits)
+        if us and sum(e.count for e in hits) % reps == 0:
+            return us / reps / 1e3
+    raise AssertionError("torch.profiler recorded no whole window of scan kernels")
 
 
 def form_calls(torch, dev, form, arrays, n):
@@ -254,6 +268,36 @@ def time_switch(torch, dev, reps):
                       "delivered": int(got.delivered)}), flush=True)
 
 
+def time_ring(torch, dev, reps):
+    import time
+    from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.kernels.ring_scan import ring_scan
+    io = torch.tensor([0.0, 1e-8, 0.0, 2e-8, 3e-8, 1e-8], dtype=torch.float64, device=dev)
+    ring = torch.zeros(64, dtype=torch.float64, device=dev)
+
+    def burn():                      # ~0.2 s of one busy thread
+        rk.chain_step(io, ring, 1 << 21, mod=8, depth=8)
+        torch.cuda.synchronize()
+    for shape, (n, m, mixed) in CS.RING_SHAPES.items():
+        t, src, dst, svc, pipe, _ = CS.timeline(np.random.default_rng(n), m, n,
+                                                len(mixed), f64=True)
+        depth = np.asarray(mixed, np.int32)
+        mod = np.minimum(np.maximum(depth, 1), m).astype(np.int32)
+        d_max = 1 << int(int(mod.max()) - 1).bit_length()
+        args = [torch.tensor(a, device=dev) for a in (t, src, dst, svc, pipe, depth, mod)]
+        kern = lambda: ring_scan(*args, n_ports=n, d_max=d_max)   # noqa: E731
+        kern()
+        torch.cuda.synchronize()
+        time.sleep(0.5)
+        cold = kernel_ms(torch, kern, 3)
+        burn()
+        warm = kernel_ms(torch, kern, 3)
+        print(json.dumps({"form": f"ring_{shape}_mixed", "B": len(mixed), "m": m,
+                          "n_ports": n, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
+                          "kernel_ms_300": kernel_ms(torch, kern, 300),
+                          "ms": cuda_ms(torch, kern, reps)}), flush=True)
+
+
 def time_flash(torch, dev, reps):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -276,7 +320,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parts", default="scans,flash,parser,switch",
                     help="comma-separated subset of scans, flash, parser, switch, "
-                         "parser_plans")
+                         "parser_plans, ring")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import torch
@@ -299,6 +343,8 @@ def main(argv=None):
         time_switch(torch, dev, 3)
     if "parser_plans" in parts:
         time_parser_plans(torch, dev, args.reps)
+    if "ring" in parts:
+        time_ring(torch, dev, args.reps)
     return 0 if ok else 1
 
 
