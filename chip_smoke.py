@@ -49,8 +49,12 @@ final ``{"ok": true, ...}`` line:
            depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
            SHARED-VOQ incast that drops, each with ms per call and kernel
            alone, ptxas registers and spills, its chain bound (m steps at
-           the measured step latency) and its bytes bound.
-  path     four main paths, each with every kernel's launch counter set to 0
+           the measured step latency) and its bytes bound.  "Kernel alone"
+           (``kernel_ms``) is ``launch_ms``: CUDA events around replays of
+           a CUDA graph of one call, for xbar, netsim, the parser, switch_loop (with
+           its chain bound: its cycles times the least dependent step one
+           cycle hands the next, measured) and the ring scan.
+  path     six main paths, each with every kernel's launch counter set to 0
            just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2,
            hft_codesign and fattree_dc with the settings their golden
@@ -90,15 +94,31 @@ final ``{"ok": true, ...}`` line:
            max_new 16, s_max 256); and both models' prefill (2 layers, 1 x
            1,024 tokens, weights from the NumPy seed) against the JAX
            package's logits in tests/torch_golden/model_{llama,mamba}.
+           (e) the DSE service (DSEServeEngine, 4 slots, stage-2 chunks of
+           64 rows, stage-4 chunks of 16): the five goldens as recorded,
+           twice, and hft with trace seed 1, interleaved; every report equal
+           to its golden (the seeded one to run_scenario), the repeats
+           report-cache hits, no request error; every stage-2 engine call
+           at 64 rows and every stage-4 round-1 call at most 16 (a chunk's
+           distinct rows), read from the engines' call keys; a second wave on a
+           fresh engine adds no call key (retrace_guard(expect=0)); xbar
+           and netsim must launch in the first wave; requests/s, stage-2
+           candidates/s, wall per unique request;
+           (f) hft_nsga2 stopped after 2 generations into a temporary
+           checkpoint directory and resumed: the report equal to the golden
+           and to the uninterrupted run, xbar and netsim launched by the
+           stopped and the resumed run; then check over the registry, every
+           scenario clean.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
            run_netsim; per-stage wall time, kernel ms, peak device memory;
-           the same run_dse with use_kernel="off", every stage-4 result
-           equal to the auto run's (ring_scan ms, stage-4 wall); a k=8
-           fat-tree (32 hosts, fattree_dc's scenario on a 10 ms datacenter
-           trace) under both engines, the reports equal apart from
-           *_time_s;
+           the same run_dse under both stage-4 engines in the order auto,
+           off, off, auto, the timeline memo cleared before each run, every
+           stage-4 result equal to the first auto run's (ring_scan ms, stage
+           walls by engine); a k=8 fat-tree (32 hosts, fattree_dc's scenario
+           on a 10 ms datacenter trace) in the same order, the reports equal
+           apart from *_time_s;
            and autotune_moe on one full-width qwen3-moe-235b-a22b MoE layer
            (d_model 4096, expert d_ff 1536, 128 experts, top-8; 8 x 1,024
            tokens; the port's seeded init, model_tp 16): stage walls, kernel
@@ -366,6 +386,23 @@ def chain_step_ns(dev, family: str, absolute: bool, decay_only: bool = False) ->
     return e0.elapsed_time(e1) * 1e6 / CHAIN_STEPS
 
 
+def switch_chain_step_ns(dev) -> float:
+    """ns of the least dependent step one cycle of ``switch_loop`` hands the
+    next (a ballot of the busy outputs, a shuffle of the hold, a maximum),
+    from CHAIN_STEPS of them on one warp, timed with CUDA events."""
+    import torch
+    from repro_torch.kernels.switch_loop import kernel as slk
+    io = torch.arange(32, dtype=torch.int32, device=dev) % 5
+    slk.chain_step(io, 1024)                                   # warm up
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    slk.chain_step(io, CHAIN_STEPS)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) * 1e6 / CHAIN_STEPS
+
+
 def phase_kernels(dev, stats):
     """Each kernel form against its plain version, bitwise, at path shapes."""
     import numpy as np
@@ -435,6 +472,7 @@ def phase_kernels(dev, stats):
                 equal = bool(torch.equal(got, want))
                 err = float((got.double() - want.double()).abs().max())
                 k_ms = cuda_ms(kern, reps=5)
+                alone_ms = launch_ms(kern, reps=5)
                 p_ms = wall_ms(plain)
                 item = size = got.element_size()
                 gated = "gated" in form and "ungated" not in form
@@ -455,8 +493,8 @@ def phase_kernels(dev, stats):
                 rec = {"kernel": "netsim_replay" if netsim else "xbar_scan",
                        "shape": shape, "B": b, "m": m, "n_ports": n,
                        "form": form, "bitwise_equal": equal,
-                       "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                       "bound_ms": bound,
+                       "max_abs_err": err, "ms": k_ms, "kernel_ms": alone_ms,
+                       "plain_ms": p_ms, "bound_ms": bound,
                        "bound_by": ("bytes" if moved / HBM_BYTES_PER_S
                                     >= flops / PEAK_FLOPS[item]
                                     else "operations"),
@@ -464,7 +502,7 @@ def phase_kernels(dev, stats):
                        "decays": 0 if f64 else m, "t_decay_ns": decay_ns,
                        "chain_bound_ms": max(by_depth, by_decays),
                        "chain_bound_by": "depth" if by_depth >= by_decays else "decays",
-                       "ns_per_event": k_ms * 1e6 / m,
+                       "ns_per_event": alone_ms * 1e6 / m,
                        "schedule": scan_schedule(form, n),
                        "ptxas": scan_ptxas(form, n)}
                 stats["forms"].append(rec)
@@ -534,24 +572,45 @@ def kernels_islip(dev, stats):
     return ok
 
 
-def kernel_alone_ms(fn, name: str, reps: int) -> float:
-    """Device time per call of the kernels whose names hold ``name``, under
-    torch.profiler (a wrapper call's ``ms`` also holds what the host does
-    between launches)."""
+#: GPU clock cycles ``launch_ms`` keeps the stream busy for each replay it
+#: queues (~30 µs), longer than the host takes to queue one replay
+LAUNCH_LEAD_CYCLES = 60_000
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Device time per call of the kernels ``fn`` launches, alone: one call
+    of ``fn`` is captured into a CUDA graph, which holds exactly the device
+    work the call queued (its launches and the fills of the buffers it
+    zeroes, such as the ring scan's tail past 241 ports), without the
+    wrapper's host checks and allocations, and the graph is replayed
+    ``reps`` times between two CUDA events.  A spin kernel
+    (``torch.cuda._sleep``) ahead of the start event keeps the stream busy
+    while the host queues the replays, so the bracket holds the kernels and
+    the gaps between them, not the host's launch latency.  The wrappers
+    leave their port-id reads to the uncaptured warm-up call on the same
+    inputs (``kernels/build.py``'s ``capturing``).  Replaces torch.profiler,
+    which lost records of these short kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    fn()                                   # warm up: builds, types and checks
     torch.cuda.synchronize()
-    for _ in range(3):                # a window that caught no kernel is retaken
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                 for e in prof.key_averages() if name in e.key)
-        if us:
-            return us / reps / 1e3
-    raise AssertionError(f"torch.profiler recorded no {name} kernel")
+    before = _read_counters()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        held = fn()          # its outputs stay allocated while the graph replays
+    if _read_counters() == before:
+        raise AssertionError("launch_ms: the call launched no counted kernel")
+    graph.replay()                         # the first replay uploads the graph
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LAUNCH_LEAD_CYCLES * reps)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del held, graph
+    return e0.elapsed_time(e1) / reps
 
 
 #: the header parser's forms: each protocol (``parser_protocol``) at 9,600
@@ -585,7 +644,7 @@ def kernels_parser(dev, stats):
     """The header parser on the hft, datacenter and Ethernet/IPv4/UDP
     protocols, every field: the switch's calibration trace (9,600
     headers) and a million headers.  ``ms`` is a wrapper call,
-    ``kernel_ms`` the kernel alone."""
+    ``kernel_ms`` the kernel alone (``launch_ms``)."""
     import torch
     from repro_torch.kernels.parser import parse_headers, parse_ref, slices
     from repro_torch.kernels.parser import kernel as pk
@@ -606,7 +665,7 @@ def kernels_parser(dev, stats):
             assert pk.LAUNCHES == n0 + 1, "parse_headers did not launch the kernel"
             pieces = sum(len(p) for p in sl.baked)
             bound, by = _bound(b * (w + f) * 4, b * pieces * 4, 4)
-            k_ms = kernel_alone_ms(kern, "parse_kernel", reps=20)
+            k_ms = launch_ms(kern, reps=20)
             rows, smem = pk.plan(w, f, b, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
             rec = {"kernel": "parse_headers", "form": f"parser_{name}",
@@ -736,6 +795,7 @@ def kernels_switch_loop(dev, stats):
     from repro_torch.kernels.switch_loop import kernel as slk
     from repro_torch.kernels.switch_loop import switch_loop_ref
 
+    cycle_ns = switch_chain_step_ns(dev)
     ok = True
     for form, (arch, bound, trace, fclk, cycles) in switch_loop_forms(dev).items():
         arr, words, sizes, keys = _switch_form(arch, bound, trace, fclk, cycles, dev)
@@ -757,13 +817,19 @@ def kernels_switch_loop(dev, stats):
                  + n * n * 8 + 24)
         bound_ms, by = _bound(moved, t * n * n, 4)
         k_ms = cuda_ms(kern, reps=3)
+        alone_ms = launch_ms(kern, reps=3)
         p = slk.plan(arch, npkt)
         rec = {"kernel": "switch_loop", "form": form, "shape": f"T{t}",
                "arch": arch.short(), "n_ports": n, "packets": npkt, "cycles": t,
                "delivered": int(want.delivered), "drops": int(want.drops),
-               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": by,
+               "ms": k_ms, "kernel_ms": alone_ms, "plain_ms": p_ms,
+               "bound_ms": bound_ms, "bound_by": by,
                "header_words": words.shape[1], "key_words": key_words,
-               "chain_cycles": t, "us_per_cycle": k_ms * 1e3 / max(t, 1),
+               "chain_cycles": t, "t_cycle_step_ns": cycle_ns,
+               "chain_bound_ms": t * cycle_ns * 1e-6,
+               "chain_bound_by": "cycles x the least dependent step",
+               "us_per_cycle": k_ms * 1e3 / max(t, 1),
+               "kernel_us_per_cycle": alone_ms * 1e3 / max(t, 1),
                "plain_us_per_cycle": p_ms * 1e3 / max(t, 1),
                "smem_bytes": p.smem_bytes, "table_shared": p.table_shared,
                "ring_shared": p.ring_shared}
@@ -1300,51 +1366,10 @@ def _incast_inputs():
             svc[:, tl4.order], pipe, depth)
 
 
-def ring_kernel_ms(args, n: int, d_max: int, reps: int) -> float:
-    """Device time per call of the ring-scan kernel alone: its launches (one
-    a chunk of rows, as ``ops.ring_scan`` makes them) back to back between
-    CUDA events, without the wrapper's host checks and allocations (and
-    without torch.profiler, which loses some of these short kernels'
-    records)."""
-    import torch
-    from repro_torch.kernels.build import check_launch
-    from repro_torch.kernels.ring_scan import kernel as rk
-    from repro_torch.kernels.ring_scan import ring_rows_per_chunk
-    now, src, dst, svc, pipe, depth, mod = args
-    b, m = svc.shape
-    step = ring_rows_per_chunk(n, d_max)
-    smem_tail = rk.tail_in_smem(n)
-    f64 = dict(dtype=torch.float64, device=svc.device)
-    chunks = []
-    for r in range(0, b, step):
-        rows = min(step, b - r)
-        chunks.append((svc[r:r + rows].t().contiguous(), pipe[r:r + rows].contiguous(),
-                       depth[r:r + rows].contiguous(), mod[r:r + rows].contiguous(),
-                       torch.empty((rows, n * n, d_max), **f64),
-                       None if smem_tail else torch.zeros(
-                           (rows, n * n), dtype=torch.int32, device=svc.device),
-                       torch.empty((rows, m), **f64),
-                       torch.empty((rows, m), dtype=torch.uint8, device=svc.device)))
-    lib = rk._lib()
-    stream = torch.cuda.current_stream(svc.device).cuda_stream
-
-    def run():
-        for svc_t, p, d, md, ring, tail, end, adm in chunks:
-            if tail is not None:
-                tail.zero_()
-            check_launch(lib.ring_scan_f64(
-                now.data_ptr(), src.data_ptr(), dst.data_ptr(), svc_t.data_ptr(),
-                p.data_ptr(), d.data_ptr(), md.data_ptr(), ring.data_ptr(),
-                None if tail is None else tail.data_ptr(), end.data_ptr(),
-                adm.data_ptr(), m, svc_t.shape[1], n, d_max, int(smem_tail),
-                stream), "ring_scan")
-    return cuda_ms(run, reps)
-
-
 def kernels_ring_scan(dev, stats):
     """The ring-scan stage-4 kernel against its plain version, bitwise
     (end and admit), at each RING_SHAPES shape and depth set and on the
-    incast; ms per call and kernel alone (``ring_kernel_ms``), ptxas
+    incast; ms per call and kernel alone (``launch_ms``), ptxas
     registers and spills, the chain bound (m steps at the measured step
     latency) and the bytes bound."""
     import numpy as np
@@ -1393,7 +1418,7 @@ def kernels_ring_scan(dev, stats):
                "chunks": -(-b // ring_rows_per_chunk(n, d_max)),
                "tail": "shared" if smem_tail else "global",
                "ms": cuda_ms(kern, reps=5),
-               "kernel_alone_ms": ring_kernel_ms(args, n, d_max, 10),
+               "kernel_ms": launch_ms(kern, 10),
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "t_step_ns": t_step, "chain_bound_ms": m * t_step * 1e-6,
                "chain_bound_by": "m steps",
@@ -1439,9 +1464,10 @@ def _read_counters():
 
 
 def phase_path(dev, stats):
-    """Two main paths on the card, each with fresh launch counters."""
+    """The main paths on the card, each with fresh launch counters."""
     failures = (path_golden(dev, stats) + path_switch(dev, stats)
-                + path_comm(dev, stats) + path_serving(dev, stats))
+                + path_comm(dev, stats) + path_serving(dev, stats)
+                + path_served(dev, stats) + path_resume(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -1492,6 +1518,168 @@ def path_golden(dev, stats):
             and launches["ring_scan"] > 0):
         failures.append(f"xbar/netsim/ring_scan did not run on the golden "
                         f"path: {launches}")
+    return failures
+
+
+#: path (e): the DSE service's widths
+SERVED = dict(slots=4, batch_width=64, verify_width=16)
+
+
+def _golden_scenario(name):
+    from repro_torch.api import Scenario
+    with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as f:
+        want = json.load(f)
+    return Scenario.from_dict(want["scenario"]), want
+
+
+def _widths(before, after, arg):
+    """{B: calls} of a tracked engine's calls between two ``call_counts``
+    snapshots, B the leading dimension of its tensor argument ``arg``."""
+    out = {}
+    for key, n in after.items():
+        n -= before.get(key, 0)
+        if n:
+            b = dict(key)[arg][0][0]
+            out[b] = out.get(b, 0) + n
+    return out
+
+
+def path_served(dev, stats):
+    """(e) the DSE service on the card: each golden as recorded twice and
+    hft with trace seed 1, interleaved; every report equal to its golden
+    (the seeded one to run_scenario, run before the counters' window), the
+    repeats answered from the report cache, no request error; every stage-2
+    engine call of the wave at the chunk width and every stage-4 round-1
+    call at most the verify width (the fixed point runs a chunk's distinct
+    rows, split by header width, as the JAX package's does), read from the
+    call keys; xbar and netsim must launch in the wave; then a second wave
+    on a fresh engine at the same widths that adds no call key
+    (retrace_guard(expect=0))."""
+    from repro_torch.analysis import retrace_guard
+    from repro_torch.analysis.retrace import call_counts
+    from repro_torch.api import DSEServeEngine, run_scenario, strip_times
+
+    failures = []
+    scen = {name: _golden_scenario(name) for name in GOLDEN}
+    seeded = scen["hft"][0].override(trace_params={"seed": 1})
+    want_seeded = strip_times(run_scenario(seeded, device=dev).to_dict())
+    order = [*GOLDEN, "hft@1", *GOLDEN]
+    engines = (("surrogate.engine", "svc"), ("netsim.kernel.round1", "svc"))
+    keys0 = {name: call_counts(name) for name, _ in engines}
+    _reset_counters()
+    eng = DSEServeEngine(device=dev, **SERVED)
+    t0 = time.perf_counter()
+    reqs = [(n, eng.submit(seeded if n == "hft@1" else scen[n][0])) for n in order]
+    eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    widths = {name: _widths(keys0[name], call_counts(name), arg)
+              for name, arg in engines}
+    st = eng.stats()
+    for name, req in reqs:
+        if req.error is not None:
+            failures.append(f"served {name}: {req.error}")
+            continue
+        errors = (diff_reports(req.report, scen[name][1]) if name != "hft@1"
+                  else (["differs from run_scenario"]
+                        if strip_times(req.report) != want_seeded else []))
+        if errors:
+            failures.append(f"served {name}: {errors[:3]}")
+        say("path", path="served", scenario=name, cached=req.cached,
+            wall_time_s=req.wall_time_s, mismatches=len(errors),
+            best=req.report.get("best"))
+    repeats = len(order) - len(set(order))
+    if st["report_hits"] != repeats or st["errors"]:
+        failures.append(f"served: {st['report_hits']} report-cache hits for "
+                        f"{repeats} repeats, {st['errors']} errors")
+    s2, s4 = widths["surrogate.engine"], widths["netsim.kernel.round1"]
+    if set(s2) != {SERVED["batch_width"]}:
+        failures.append(f"served: stage-2 engine calls at widths {s2}, not "
+                        f"only {SERVED['batch_width']}")
+    if not s4 or max(s4) > SERVED["verify_width"]:
+        failures.append(f"served: stage-4 round-1 calls at widths {s4}, not "
+                        f"at most {SERVED['verify_width']}")
+    unique = len(set(order))
+    # the second wave: a fresh engine (empty caches) at the same widths
+    try:
+        with retrace_guard(expect=0) as guard:
+            again = DSEServeEngine(device=dev, **SERVED)
+            for name in sorted(set(order)):
+                again.submit(seeded if name == "hft@1" else scen[name][0])
+            second = again.run_until_drained()
+        new_keys = guard.deltas()
+    except AssertionError as e:
+        new_keys = str(e)
+        failures.append(f"served second wave: {e}")
+        second = []
+    if any(r.error for r in second):
+        failures.append("served second wave: a request errored")
+    rec = {"path": "served", "requests": len(order), "unique": unique,
+           "wall_s": wall, "requests_per_s": len(order) / wall,
+           "wall_per_unique_request_s": wall / unique,
+           "stage2_cands_per_sec": st["stage2_cands_per_sec"],
+           "stage4_cands_per_sec": st["stage4_cands_per_sec"],
+           "stage2_rows": st["stage2_rows"], "stage2_pad_rows": st["stage2_pad_rows"],
+           "stage2_chunks": st["stage2_chunks"], "stage4_rows": st["stage4_rows"],
+           "stage4_pad_rows": st["stage4_pad_rows"], "stage4_chunks": st["stage4_chunks"],
+           "report_hits": st["report_hits"], "errors": st["errors"],
+           "timeline": st["timeline"], "stage2_engine_widths": s2,
+           "stage4_round1_widths": s4, "second_wave_new_keys": new_keys,
+           "launches": launches, **SERVED}
+    stats["served"] = rec
+    say("path", **rec)
+    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0):
+        failures.append(f"xbar/netsim did not run on the served path: {launches}")
+    return failures
+
+
+def path_resume(dev, stats):
+    """(f) hft_nsga2 at registry size, stopped after 2 generations into a
+    temporary checkpoint directory and resumed by run_scenario: the report
+    equals the golden and the uninterrupted run (the checkpoint directory
+    and the resumed note the only fields allowed to differ), and xbar and
+    netsim launch between the stop and the resumed report; then check over
+    the registry, every scenario clean."""
+    import tempfile
+    from repro_torch.analysis import check_scenario, exit_code
+    from repro_torch.api import build_problem, registry, run_scenario
+    from repro_torch.core.search import run_search
+
+    failures = []
+    scen, want = _golden_scenario("hft_nsga2")
+    _reset_counters()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ck:
+        spec = dataclasses.replace(scen.search, checkpoint_dir=ck)
+        ckpt = scen.override(search=spec)
+        problem, sla, _ = build_problem(ckpt, device=dev)
+        part = run_search(problem, spec, sla, delta=ckpt.fidelity.delta,
+                          checkpoint_dir=ck, max_generations_this_run=2)
+        resumed = run_scenario(ckpt, resume=True, device=dev)
+        got = json.loads(json.dumps(resumed.to_dict()))
+    t_resume = time.perf_counter() - t0
+    launches = _read_counters()
+    full = json.loads(json.dumps(run_scenario(scen, device=dev).to_dict()))
+    got["scenario"]["search"]["checkpoint_dir"] = None
+    notes = got["stages"][0]["notes"]
+    errors = [] if "resumed=True" in notes else [f"not resumed: {notes}"]
+    got["stages"][0]["notes"] = [n.replace("resumed=True", "resumed=False")
+                                 for n in notes]
+    errors += diff_reports(got, want)
+    if _without_times(got) != _without_times(full):
+        errors.append("the resumed report differs from the uninterrupted run")
+    say("path", path="resume", scenario="hft_nsga2", stopped_after=part.generations,
+        resumed_notes=notes, mismatches=len(errors), first_mismatches=errors[:5],
+        stop_and_resume_time_s=t_resume, launches=launches)
+    if errors or part.generations != 2:
+        failures.append(f"resume: {errors[:3]}")
+    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0):
+        failures.append(f"xbar/netsim did not run on the resume path: {launches}")
+    diags = {name: check_scenario(registry[name]) for name in registry.names()}
+    dirty = sorted(n for n, d in diags.items() if exit_code(d))
+    say("path", path="check", scenarios=len(diags), dirty=dirty)
+    if dirty:
+        failures.append(f"check found problems in {dirty}")
     return failures
 
 
@@ -1800,7 +1988,7 @@ def _serve_engine(cfg, params, dev, stats):
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     res = launcher.serve(cfg, params, **SERVE_ENGINE)
-    done, wall, ticks = res.pop("done"), res["wall_s"], res["ticks"]
+    done, wall, ticks = res.pop("done"), res["wall_time_s"], res["ticks"]
     ok = (res["served"] == SERVE_ENGINE["requests"]
           and all(len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out)
                   for r in done))
@@ -1959,12 +2147,15 @@ def phase_scale(dev, stats):
     from repro_torch.core.search import evaluate_space
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.xbar import kernel as xk
+    from repro_torch.sim import timeline as memo
 
     with open(os.path.join(ROOT, "tests", "golden", "hft.json")) as f:
         scen = Scenario.from_dict(json.load(f)["scenario"])
     kw = {"delta": scen.fidelity.delta, "top_k": scen.fidelity.top_k}
 
-    # (a) the exhaustive DSE on a 40 ms capture
+    # (a) the exhaustive DSE on a 40 ms capture; the timeline memo cleared,
+    # so this run builds its own stage-2 and stage-4 timelines
+    memo.clear()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     problem, sla, budget = build_problem(
@@ -1996,7 +2187,8 @@ def phase_scale(dev, stats):
                                             None, n_ports=8, absolute=True),
                    reps=2)
     host = host_passes(problem, dev, rng, len(c2))
-    rec = {"run": "run_dse hft duration_s=0.04", "events": m,
+    rec = {"run": "run_dse hft duration_s=0.04", "engine": "auto", "order": 1,
+           "events": m,
            "stage2_rows": len(c2), "stage4_rows": len(c4),
            "best": result.best.short() if result.best is not None else None,
            "trace_and_problem_s": t_build, "run_dse_s": t_dse,
@@ -2009,7 +2201,7 @@ def phase_scale(dev, stats):
     stats["scale"].append(rec)
     say("scale", **rec)
     del problem, result, log, svc_t, t_d, src_d, dst_d, pipe_d
-    scale_ring_dse(dev, stats, scen, kw, c4, r4)
+    scale_engines_dse(dev, stats, scen, kw, rec, c4, r4)
     del c4, r4
 
     # (b) the exhaustive space screen on a 10 ms capture
@@ -2063,48 +2255,74 @@ def _same_verify(a, b) -> bool:
                     for k in ("latency_ns", "latency_full_ns")))
 
 
-def scale_ring_dse(dev, stats, scen, kw, c4_auto, r4_auto):
-    """run_dse on the 40 ms hft capture with the ring-scan engine
-    (use_kernel="off"): every stage-4 result equal to the auto run's."""
+#: the stage-4 engines' order in the scale phase's comparisons: each runs
+#: first once and second once, every run after a cleared timeline memo
+ENGINE_ORDER = ("auto", "off", "off", "auto")
+
+
+def _engine_walls(recs, key):
+    """engine -> that field of each of its runs, in run order."""
+    out = {}
+    for r in recs:
+        out.setdefault(r["engine"], []).append(r[key])
+    return out
+
+
+def scale_engines_dse(dev, stats, scen, kw, first, c4_auto, r4_auto):
+    """run_dse on the 40 ms hft capture under both stage-4 engines in the
+    order ENGINE_ORDER (``first`` is the auto run already taken), the
+    timeline memo cleared before each run: every stage-4 result equal to
+    the first auto run's; the ring scan launches only on the off runs."""
     import torch
     from repro_torch.api import build_problem
     from repro_torch.core.dse import run_dse
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.sim import timeline as memo
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    problem, sla, budget = build_problem(
-        scen.override(trace_params={"duration_s": 0.04}, use_kernel="off"),
-        device=dev)
-    log, events = {}, []
-    _timed(problem, "surrogate_batch", log)
-    _timed(problem, "verify_batch", log)
-    undo = _kernel_timer(events, {"ring_scan": rk})
-    r0, n0 = rk.LAUNCHES, nk.LAUNCHES
-    try:
-        t0 = time.perf_counter()
-        result = run_dse(problem, sla, budget, **kw)
-        t_dse = time.perf_counter() - t0
-    finally:
-        undo()
-    (s2, _, _), = log["surrogate_batch"]
-    (s4, c4, r4), = log["verify_batch"]
-    same = ([c.short() for c in c4] == [c.short() for c in c4_auto]
-            and all(_same_verify(a, b) for a, b in zip(r4, r4_auto)))
-    rec = {"run": "run_dse hft duration_s=0.04 use_kernel=off",
-           "events": len(problem.trace), "stage4_rows": len(c4),
-           "best": result.best.short() if result.best is not None else None,
-           "run_dse_s": t_dse, "stage2_s": s2, "stage4_s": s4,
-           "ring_scan_ms": _kernel_ms(events, 0).get("ring_scan", 0.0),
-           "launches": {"ring_scan": rk.LAUNCHES - r0,
-                        "netsim_replay": nk.LAUNCHES - n0},
-           "stage4_equal_to_auto": same,
-           "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
-    stats["scale"].append(rec)
-    say("scale", **rec)
-    if not same or rec["launches"]["ring_scan"] == 0:
-        raise AssertionError("the ring-scan run_dse differs from the auto run "
-                             "or launched no ring_scan")
+    recs = [first]
+    for order, use_kernel in enumerate(ENGINE_ORDER[1:], start=2):
+        memo.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        problem, sla, budget = build_problem(
+            scen.override(trace_params={"duration_s": 0.04}, use_kernel=use_kernel),
+            device=dev)
+        log, events = {}, []
+        _timed(problem, "surrogate_batch", log)
+        _timed(problem, "verify_batch", log)
+        undo = _kernel_timer(events, {"ring_scan": rk})
+        r0, n0 = rk.LAUNCHES, nk.LAUNCHES
+        try:
+            t0 = time.perf_counter()
+            result = run_dse(problem, sla, budget, **kw)
+            t_dse = time.perf_counter() - t0
+        finally:
+            undo()
+        (s2, _, _), = log["surrogate_batch"]
+        (s4, c4, r4), = log["verify_batch"]
+        same = ([c.short() for c in c4] == [c.short() for c in c4_auto]
+                and all(_same_verify(a, b) for a, b in zip(r4, r4_auto)))
+        launches = {"ring_scan": rk.LAUNCHES - r0, "netsim_replay": nk.LAUNCHES - n0}
+        rec = {"run": f"run_dse hft duration_s=0.04 use_kernel={use_kernel}",
+               "engine": use_kernel, "order": order,
+               "events": len(problem.trace), "stage4_rows": len(c4),
+               "best": result.best.short() if result.best is not None else None,
+               "run_dse_s": t_dse, "stage2_s": s2, "stage4_s": s4,
+               "ring_scan_ms": _kernel_ms(events, 0).get("ring_scan", 0.0),
+               "launches": launches, "stage4_equal_to_auto": same,
+               "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
+        stats["scale"].append(rec)
+        say("scale", **rec)
+        recs.append(rec)
+        del problem, result, log, c4, r4
+        ring_ok = (launches["ring_scan"] > 0) == (use_kernel == "off")
+        if not same or not ring_ok:
+            raise AssertionError(f"run_dse use_kernel={use_kernel} differs from the "
+                                 f"first auto run, or the ring scan ran where it "
+                                 f"should not (or not where it should): {launches}")
+    say("scale", run="run_dse 40 ms by engine (order auto, off, off, auto)",
+        stage2_s=_engine_walls(recs, "stage2_s"), stage4_s=_engine_walls(recs, "stage4_s"),
+        run_dse_s=_engine_walls(recs, "run_dse_s"))
 
 
 #: a fabric at a deployment's width: fattree_dc's scenario on a k=8 fat-tree
@@ -2127,29 +2345,33 @@ def _without_times(doc):
 
 
 def scale_fattree(dev, stats):
-    """The k=8 fat-tree under both stage-4 engines: the reports equal apart
-    from *_time_s and fidelity.use_kernel."""
+    """The k=8 fat-tree under both stage-4 engines in the order
+    ENGINE_ORDER, the timeline memo cleared before each run: every report
+    equal to the first's apart from *_time_s and fidelity.use_kernel."""
     import torch
     from repro_torch.api import Scenario, run_scenario
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.ring_scan import kernel as rk
     from repro_torch.kernels.xbar import kernel as xk
+    from repro_torch.sim import timeline as memo
 
     with open(os.path.join(ROOT, "tests", "golden", "fattree_dc.json")) as f:
         base = json.load(f)["scenario"]
     base.update(topology=FATTREE8["topology"], trace=FATTREE8["trace"])
     base["protocol"]["params"]["addr_bits"] = FATTREE8["addr_bits"]
-    reports = {}
-    for use_kernel in ("auto", "off"):
+    reports, recs = [], []
+    for order, use_kernel in enumerate(ENGINE_ORDER, start=1):
         d = json.loads(json.dumps(base))
         d["fidelity"]["use_kernel"] = use_kernel
+        memo.clear()
         torch.cuda.reset_peak_memory_stats(dev)
         counts = (xk.LAUNCHES, nk.LAUNCHES, rk.LAUNCHES)
         report = run_scenario(Scenario.from_dict(d), device=dev)
         got = json.loads(json.dumps(report.to_dict()))
         got["scenario"]["fidelity"].pop("use_kernel", None)
-        reports[use_kernel] = got
+        reports.append(got)
         rec = {"run": f"fattree k=8 datacenter 32 hosts 10 ms use_kernel={use_kernel}",
+               "engine": use_kernel, "order": order,
                "events": len(report.problem.trace),
                "stage2_candidates": report.stage2_candidates,
                "stage4_candidates": report.stage4_candidates,
@@ -2162,13 +2384,18 @@ def scale_fattree(dev, stats):
                "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
         stats["scale"].append(rec)
         say("scale", **rec)
+        recs.append(rec)
         del report
-    errors = diff_reports(reports["off"], reports["auto"])
-    if _without_times(reports["off"]) != _without_times(reports["auto"]):
-        errors.append("the reports differ outside *_time_s")
-    say("scale", run="fattree k=8 off vs auto", mismatches=len(errors),
-        first_mismatches=errors[:5])
-    if errors or reports["auto"]["best"] is None:
+    errors = []
+    for other in reports[1:]:
+        errors += diff_reports(other, reports[0])
+        if _without_times(other) != _without_times(reports[0]):
+            errors.append("the reports differ outside *_time_s")
+    say("scale", run="fattree k=8 by engine (order auto, off, off, auto)",
+        mismatches=len(errors), first_mismatches=errors[:5],
+        wall_s=_engine_walls(recs, "wall_s"), stage2_s=_engine_walls(recs, "stage2_s"),
+        stage4_s=_engine_walls(recs, "stage4_s"))
+    if errors or reports[0]["best"] is None:
         raise AssertionError(f"the k=8 fat-tree differs between the engines: "
                              f"{errors[:5]}")
     torch.cuda.empty_cache()

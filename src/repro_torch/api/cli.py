@@ -1,8 +1,11 @@
 """The port's command line (``python -m repro_torch``): the JAX package's
-``spac`` front door for the subcommands ported so far.
+``spac`` front door, with the same subcommands, flags and exit codes.
 
     python -m repro_torch list                          # registry scenarios
     python -m repro_torch show hft                      # dump a scenario as JSON
+    python -m repro_torch check hft                     # static diagnostics (SPAC1xx)
+    python -m repro_torch check my_scenario.json --format json
+    python -m repro_torch lint src/repro_torch tests    # determinism lint (SPAC2xx)
     python -m repro_torch ingest capture.csv -o capture.npz   # pcap/CSV -> Trace
     python -m repro_torch ingest lan.pcap --stage "filter:min_payload=64" \
         --stage "incast:dst=0,n_senders=6,n_packets=128" --seed 7
@@ -10,15 +13,25 @@
     python -m repro_torch run my_scenario.json --out report.json
     python -m repro_torch run hft --search nsga2 --generations 10 --search-seed 0
     python -m repro_torch run hft --search nsga2 --co-design
+    python -m repro_torch run hft --search nsga2 --checkpoint-dir ckpt && \
+        python -m repro_torch run hft --search nsga2 --checkpoint-dir ckpt --resume
     python -m repro_torch run fattree_dc                # a fat-tree fabric
     python -m repro_torch run hft --use-kernel off      # the ring-scan engine
     python -m repro_torch sweep hft underwater industry # campaign over registry names
     python -m repro_torch sweep --config campaign.json  # campaign from a config file
+    python -m repro_torch serve hft datacenter --repeat 4   # continuous-batched DSE service
+    python -m repro_torch serve --requests reqs.json --out served.json --stats
 
 Every subcommand that runs takes ``--device`` (default ``cuda``: the port
 runs on the card and raises without one; ``--device cpu`` runs the kernels'
-plain PyTorch versions).  ``check``, ``lint`` and ``serve`` are not
-registered until their slice of the port lands (ROADMAP queue 1, item 2).
+plain PyTorch versions).  ``--devices N`` above 1 raises: a mesh is not
+ported yet (ROADMAP queue 1: mesh).
+
+Serve request schema (JSON): a list of entries; each entry is a registry
+name, a scenario dict, or ``{"base"|"scenario": ..., "seed": ..., "repeat":
+N, ...overrides}`` — the scenario part resolves exactly like a campaign
+entry, ``seed`` overrides the trace generator seed, ``repeat`` enqueues the
+request N times (cache-hit fodder).
 
 Campaign config schema (JSON): either a plain list of entries or
 ``{"name": ..., "scenarios": [...]}``; each entry is a registry name, a full
@@ -348,6 +361,28 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("show", help="dump a scenario spec as JSON")
     sp.add_argument("scenario", help="registry name or .json path")
 
+    cp = sub.add_parser(
+        "check",
+        help="static spec diagnostics (SPAC1xx): addressability, SLA "
+             "satisfiability, budget vs the minimal plan, dead co-design "
+             "genes — no trace, no kernel; exits 0 clean / 1 findings / "
+             "2 usage")
+    cp.add_argument("scenarios", nargs="+",
+                    help="registry names or .json paths")
+    cp.add_argument("--format", choices=("text", "json"), default="text")
+
+    tp = sub.add_parser(
+        "lint",
+        help="determinism/jit-hygiene lint (SPAC2xx) — same engine as "
+             "python -m repro_torch.analysis.lint")
+    tp.add_argument("paths", nargs="*",
+                    help="files or directories to lint (default: .)")
+    tp.add_argument("--format", choices=("text", "json"), default="text")
+    tp.add_argument("--select", default=None, metavar="CODES",
+                    help="comma-separated rule codes to run")
+    tp.add_argument("--list-rules", action="store_true",
+                    help="print the rule catalogue and exit")
+
     ip = sub.add_parser(
         "ingest",
         help="pcap/CSV capture -> Trace .npz, through a declarative stage "
@@ -393,6 +428,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the campaign report as JSON")
     wp.add_argument("-v", "--verbose", action="store_true")
 
+    vp = sub.add_parser(
+        "serve",
+        help="continuously-batched DSE service: scenario requests share "
+             "fixed-width stage-2/stage-4 calls and content-addressed "
+             "trace/problem/report caches — repeat traffic is answered "
+             "without touching a simulator")
+    vp.add_argument("scenarios", nargs="*",
+                    help="registry names or .json paths to enqueue")
+    vp.add_argument("--requests", default=None, metavar="FILE",
+                    help="request list JSON (see module docstring)")
+    vp.add_argument("--repeat", type=int, default=1, metavar="N",
+                    help="enqueue each positional scenario N times")
+    vp.add_argument("--seed", type=int, action="append", default=None,
+                    metavar="S", help="trace seed(s); repeatable — each "
+                    "positional scenario is enqueued once per seed")
+    vp.add_argument("--slots", type=int, default=4,
+                    help="concurrent requests multiplexed per tick")
+    vp.add_argument("--batch-width", type=int, default=64,
+                    help="fixed stage-2 surrogate chunk width (rows)")
+    vp.add_argument("--verify-width", type=int, default=16,
+                    help="fixed stage-4 netsim chunk width (rows)")
+    vp.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="shard every chunk over N devices (not ported "
+                         "yet: any N > 1 raises)")
+    vp.add_argument("--device", default="cuda",
+                    help="where the service runs: cuda (default; the "
+                         "hand-written kernels, raises without a card) or "
+                         "cpu (their plain PyTorch versions)")
+    vp.add_argument("--out", default=None, metavar="FILE",
+                    help="write per-request reports + engine stats as JSON")
+    vp.add_argument("--stats", action="store_true",
+                    help="print cache/chunk counters after draining")
     return p
 
 
@@ -421,6 +488,41 @@ def _cmd_list(args) -> int:
 def _cmd_show(args) -> int:
     print(_load_scenario(args.scenario).to_json())
     return 0
+
+
+def _cmd_check(args) -> int:
+    import dataclasses
+    from repro_torch.analysis.check import check_scenario
+    from repro_torch.analysis.diagnostics import (exit_code, format_text,
+                                                  to_json_payload)
+    diags = []
+    for target in args.scenarios:
+        try:
+            scenario = _load_scenario(target)
+        except SystemExit as e:
+            # input that never became checkable is a usage error (2), kept
+            # distinct from findings (1) so CI can tell the two apart
+            print(f"{PROG} check: {e}", file=sys.stderr)
+            return EXIT_USAGE
+        diags.extend(dataclasses.replace(d, location=f"{target}:{d.location}")
+                     for d in check_scenario(scenario))
+    if args.format == "json":
+        print(json.dumps(to_json_payload(diags), indent=2, sort_keys=True))
+    else:
+        print(format_text(diags, clean_message=(
+            f"{PROG} check: {len(args.scenarios)} scenario(s) clean")))
+    return exit_code(diags)
+
+
+def _cmd_lint(args) -> int:
+    from repro_torch.analysis.lint import main as lint_main
+    argv = []
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.select:
+        argv += ["--select", args.select]
+    argv += ["--format", args.format]
+    return lint_main(argv + list(args.paths))
 
 
 def _cmd_run(args) -> int:
@@ -486,10 +588,79 @@ def _cmd_sweep(args) -> int:
     return 0 if all(r.best is not None for r in report.reports) else 1
 
 
+def _serve_requests(args):
+    """CLI inputs → [(Scenario, seed|None)] in submission order."""
+    pairs = []
+    seeds = args.seed if args.seed else [None]
+    for target in args.scenarios:
+        for s in seeds:
+            pairs.extend([(_load_scenario(target), s)] * max(args.repeat, 1))
+    if args.requests:
+        with open(args.requests) as f:
+            entries = json.load(f)
+        if not isinstance(entries, list):
+            raise SystemExit(f"{args.requests}: expected a JSON list")
+        for entry in entries:
+            seed, repeat = None, 1
+            if isinstance(entry, Mapping):
+                entry = dict(entry)
+                seed = entry.pop("seed", None)
+                repeat = int(entry.pop("repeat", 1))
+                inner = entry.pop("scenario", None)
+                if inner is not None:
+                    # {"scenario": name-or-dict, ...overrides}: the inner
+                    # spec is the base the remaining keys merge into
+                    if isinstance(inner, str):
+                        entry["base"] = inner
+                    else:
+                        entry = _deep_merge(inner, entry)
+            spec = resolve_entry(entry)
+            pairs.extend([(spec, seed)] * max(repeat, 1))
+    if not pairs:
+        raise SystemExit("serve needs scenario names or --requests FILE")
+    return pairs
+
+
+def _cmd_serve(args) -> int:
+    from .service import DSEServeEngine
+    pairs = _serve_requests(args)
+    eng = DSEServeEngine(slots=args.slots, batch_width=args.batch_width,
+                         verify_width=args.verify_width,
+                         mesh=_mesh_from_args(args), device=args.device)
+    for scenario, seed in pairs:
+        eng.submit(scenario, seed=seed)
+    finished = eng.run_until_drained()
+    stats = eng.stats()
+    for req in finished:
+        mark = "cached" if req.cached else f"{req.wall_time_s:6.2f}s"
+        tail = (f"error: {req.error}" if req.error
+                else f"best={req.report.get('best')}")
+        print(f"  {req.rid:>6s} {req.scenario.name:16s} [{mark}] {tail}")
+    n_err = sum(1 for r in finished if r.error)
+    print(f"served {len(finished)} request(s), {n_err} error(s); "
+          f"report cache {stats['report_hits']} hit / "
+          f"{stats['report_misses']} miss, "
+          f"stage2 {stats['stage2_rows']} rows / "
+          f"{stats['stage2_chunks']} chunks "
+          f"({stats['stage2_cands_per_sec']:.0f} cand/s)")
+    if args.stats:
+        print(json.dumps({k: v for k, v in stats.items()},
+                         indent=2, sort_keys=True))
+    if args.out:
+        payload = {"requests": [dict(r.summary_dict(), report=r.report)
+                                for r in finished],
+                   "stats": stats}
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"wrote serve report to {args.out}")
+    return 0 if n_err == 0 else 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"list": _cmd_list, "show": _cmd_show, "ingest": _cmd_ingest,
-            "run": _cmd_run, "sweep": _cmd_sweep}[args.cmd](args)
+    return {"list": _cmd_list, "show": _cmd_show, "check": _cmd_check,
+            "lint": _cmd_lint, "ingest": _cmd_ingest, "run": _cmd_run,
+            "sweep": _cmd_sweep, "serve": _cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

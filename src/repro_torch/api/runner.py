@@ -20,9 +20,9 @@ The port's copy of the JAX package's ``api/runner.py``.  Every entry point
 takes ``device`` (default: the first CUDA device; raises without one),
 where the batched stages, back-annotation and the cycle-level switch run.
 Single-switch, fabric and comm-domain scenarios run here; a scenario with a
-mesh raises ``NotImplementedError`` (ROADMAP queue 1, item 3: mesh), as do
-search checkpoints (item 1).  (A comm scenario runs its fabric on one
-device whatever its mesh, as in the reference.)
+mesh raises ``NotImplementedError`` (ROADMAP queue 1: mesh).  (A comm
+scenario runs its fabric on one device whatever its mesh, as in the
+reference.)
 """
 
 from __future__ import annotations

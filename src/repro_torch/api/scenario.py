@@ -72,7 +72,7 @@ class MeshSpec:
     ``scenario_axis`` is a second, data-parallel axis campaigns use to spread
     scenario groups; the total shard count is ``devices * scenario_axis``.
     Plain data that round-trips through scenario dicts.  Sharding is not
-    ported yet (ROADMAP queue 1, item 3: mesh): running a scenario with a mesh
+    ported yet (ROADMAP queue 1: mesh): running a scenario with a mesh
     raises ``NotImplementedError``.
     """
 

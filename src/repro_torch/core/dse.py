@@ -440,12 +440,12 @@ def run_dse(
     to ``search.checkpoint_dir``).
 
     ``mesh`` must be None: sharding the batched stages over several CUDA
-    devices is not ported yet (ROADMAP queue 1, item 3: mesh).
+    devices is not ported yet (ROADMAP queue 1: mesh).
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1, "
-            "item 3: mesh); run on one device with mesh=None")
+            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1: "
+            "mesh); run on one device with mesh=None")
     if search is not None:
         from .search import run_search
         outcome = run_search(problem, search, sla, delta=delta,

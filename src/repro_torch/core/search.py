@@ -18,7 +18,8 @@ engine that rides the batched surrogate fan-out from PR 1-3:
     applies stage-1 static-timing pruning, folds the SLA into constraint
     domination, dedupes phenotypes so the surrogate only ever sees unique
     candidates, and checkpoints generation state via
-    ``repro.checkpoint.store`` (population, archive, RNG state, generation).
+    ``repro_torch.checkpoint.store`` (population, archive, RNG state,
+    generation).
   * Each generation's un-evaluated population fans through **one**
     ``surrogate_batch`` call; the campaign runner drives several drivers in
     generational lockstep so scenarios sharing a (trace, bound protocol)
@@ -494,29 +495,55 @@ class NSGA2Search:
 
 
 # --------------------------------------------------------------------------
-# checkpoint plumbing: not ported yet
+# checkpoint plumbing (repro_torch.checkpoint.store)
 # --------------------------------------------------------------------------
 
-_CHECKPOINT_TODO = ("search checkpoints and remeshing are not ported to "
-                    "repro_torch yet (ROADMAP queue 1, item 1: checkpoints, "
-                    "and item 3: mesh)")
-
-
 def save_search_state(ckpt_dir: str, engine: NSGA2Search, mesh=None) -> str:
-    """Persist one generation of search state; not ported yet."""
-    raise NotImplementedError(_CHECKPOINT_TODO)
+    """Persist one generation of search state (``step_<generation>``).
+
+    ``mesh`` (an optional ``api.scenario.MeshSpec``) is stamped into the
+    manifest purely as provenance: the state arrays are host-resident and
+    mesh-agnostic, so a checkpoint written on N devices restores on M —
+    restore never reads the stamp (see :func:`remesh_search_state`)."""
+    from repro_torch.checkpoint import store
+    tree, extra = engine.state()
+    if mesh is not None:
+        extra = dict(extra, mesh=mesh.to_dict())
+    return store.save(ckpt_dir, engine.generation, tree, extra=extra)
 
 
 def load_search_state(ckpt_dir: str, space: DesignSpace,
                       spec: SearchSpec) -> Optional[NSGA2Search]:
-    """Latest checkpointed engine under ``ckpt_dir``; not ported yet."""
-    raise NotImplementedError(_CHECKPOINT_TODO)
+    """Latest checkpointed engine under ``ckpt_dir``, or None if empty.
+
+    Deliberately ignores any ``mesh`` stamp in the manifest: search state is
+    mesh-shape-independent, so resuming on a different device count is the
+    normal path, not an error."""
+    from repro_torch.checkpoint import store
+    step = store.latest_step(ckpt_dir)
+    if step is None:
+        return None
+    template = {k: np.zeros((0,), np.int64) for k in NSGA2Search._STATE_KEYS}
+    tree, manifest = store.restore(ckpt_dir, step, template=template)
+    return NSGA2Search.from_state(space, spec, tree, manifest["extra"])
 
 
 def remesh_search_state(tree: Mapping[str, np.ndarray],
                         extra: Mapping[str, Any], mesh=None):
-    """The remesh analogue for search state; not ported yet."""
-    raise NotImplementedError(_CHECKPOINT_TODO)
+    """The remesh analogue for search state.
+
+    Search state lives on the host (pure NumPy) and contains nothing shaped
+    by the mesh — population, eval cache, RNG stream and hv history are all
+    device-count-independent — so remeshing is the identity on the arrays
+    and only restamps the provenance ``mesh`` entry, for any extent (running
+    on more than one device is another matter: ROADMAP queue 1: mesh).
+    ``remesh(state, N→M→N) == state`` by construction."""
+    from repro_torch.api.scenario import MeshSpec
+    mesh = MeshSpec.coerce(mesh)
+    extra = {k: v for k, v in extra.items() if k != "mesh"}
+    if mesh is not None:
+        extra["mesh"] = mesh.to_dict()
+    return dict(tree), extra
 
 
 # --------------------------------------------------------------------------

@@ -342,9 +342,33 @@ __global__ void __launch_bounds__(32, 1) switch_loop_kernel(const Args a) {
   }
 }
 
+// `steps` of the least dependent step one cycle hands the next, on one
+// warp: every cycle's schedule reads the busy outputs through a ballot, and
+// the matched output's hold comes back through a shuffle into a maximum
+// (busy_out above).  io[0..31]: each lane's value; io gets the result, so
+// the chain is not dead code.  The cycle loop's chain bound is its cycles
+// times this step's latency (chip_smoke.py's kernels phase).
+__global__ void __launch_bounds__(32, 1) switch_chain_kernel(int32_t* io, int steps) {
+  const int lane = threadIdx.x;
+  int busy = io[lane];
+  for (int k = 0; k < steps; ++k) {
+    const unsigned outs = __ballot_sync(FULL_WARP, busy > 2);
+    const int hold = __shfl_sync(FULL_WARP, busy, (lane + outs) & 31);
+    busy = max(hold - 1, int(outs & 3u));
+  }
+  io[lane] = busy;
+}
+
 }  // namespace
 
 extern "C" {
+
+// `steps` dependent steps of switch_chain_kernel on `stream` (io: 32 int32).
+int switch_loop_chain(void* io, int steps, void* stream) {
+  switch_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(io), steps);
+  return int(cudaGetLastError());
+}
 
 int switch_loop_key_pieces_bytes() { return int(sizeof(KeyPieces)); }
 

@@ -161,8 +161,8 @@ def _single_device(mesh) -> None:
     """Refuse a mesh (not ported), as ``SwitchDSEProblem`` does."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1, "
-            "item 3: mesh); evaluate fabrics on one device with mesh=None")
+            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1: "
+            "mesh); evaluate fabrics on one device with mesh=None")
 
 
 def _masked_times(arr_row: np.ndarray, alive_row: np.ndarray) -> np.ndarray:

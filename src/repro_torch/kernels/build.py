@@ -28,8 +28,9 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "MAX_SMEM_BYTES", "library",
-           "build_all", "check_launch", "check_ports", "check_tensor"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "MAX_SMEM_BYTES", "KernelError",
+           "library", "build_all", "capturing", "check_launch", "check_ports",
+           "check_tensor"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -42,6 +43,12 @@ MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch: a fault of the machine or of
+    the port, never of a request (the DSE service lets it through)."""
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -52,8 +59,8 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
-                       "kernels are built on a machine with the CUDA toolkit")
+    raise KernelError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                      "kernels are built on a machine with the CUDA toolkit")
 
 
 def _target(name: str) -> Path:
@@ -81,8 +88,8 @@ def _finish(name: str, proc, tmp: Path, out: Path, log: Path) -> None:
     text, _ = proc.communicate()
     log.write_text(text)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{text[-4000:]}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{text[-4000:]}")
     os.replace(tmp, out)          # atomic: a concurrent loader sees all or none
 
 
@@ -94,10 +101,10 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     for n, job in started.items():
         try:
             _finish(n, *job)
-        except RuntimeError as e:
+        except KernelError as e:
             errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return {n: _target(n) for n in names}
 
 
@@ -115,7 +122,7 @@ def library(name: str) -> ctypes.CDLL:
 def check_launch(code: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code (0 is success)."""
     if code != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+        raise KernelError(f"{what}: CUDA launch failed with error {code}")
 
 
 def check_tensor(x: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -131,9 +138,19 @@ def check_tensor(x: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def capturing(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a CUDA tensor and the current stream is being
+    captured into a CUDA graph, where a device-to-host copy is not allowed."""
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def check_ports(src: torch.Tensor, dst: torch.Tensor, n_ports: int) -> None:
     """Raise unless every port id in ``src`` and ``dst`` lies in
-    [0, n_ports).  The four extrema come back in one device-to-host copy."""
+    [0, n_ports).  The four extrema come back in one device-to-host copy,
+    which a graph capture forbids: while capturing, the check is left to
+    the uncaptured call that precedes a capture on the same inputs."""
+    if capturing(src):
+        return
     ext = torch.stack([*torch.aminmax(src), *torch.aminmax(dst)])
     lo_s, hi_s, lo_d, hi_d = ext.tolist()
     lo, hi = min(lo_s, lo_d), max(hi_s, hi_d)

@@ -42,6 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.retrace import track
+
 from . import kernel
 from .ref import fullness_ok, netsim_replay_abs_ref, netsim_replay_slack_ref
 
@@ -236,6 +238,21 @@ def lean_replay(now, src, dst, svc, pipe, admit, *, n_ports: int,
         absolute=False)
 
 
+def _round1_impl(now, src, dst, svc, pipe, depth, perm, seg_start, rank, *,
+                 n_ports: int):
+    """Round 1 of the fixed point: the ungated replay and its all-admitted
+    fullness check, ``(end [B, m], ok [B])`` on ``svc``'s device."""
+    end = _replay(now, src, dst, svc, pipe, None, n_ports=n_ports)
+    return end, fullness_ok(end, now, depth, perm, seg_start, rank)
+
+
+# tracked under the JAX package's names for its jitted round 1 and replay
+_round1 = track("netsim.kernel.round1", _round1_impl,
+                static_argnames=("n_ports",))
+_gated_replay = track("netsim.kernel.replay", _replay,
+                      static_argnames=("n_ports",))
+
+
 def _on(a, dtype, device) -> torch.Tensor:
     """Host array -> a fresh tensor on ``device`` (the timeline memo's
     arrays are read-only and shared, so they are copied, never aliased)."""
@@ -292,11 +309,10 @@ def netsim_fixed_point(
     dst_d = _on(dst, np.int32, device)
     svc_d = _on(svc, np.float64, device)
     pipe_d = _on(pipe, np.float64, device)
-    end_d = _replay(now_d, src_d, dst_d, svc_d, pipe_d, None, n_ports=n_ports)
-    ok_d = fullness_ok(
-        end_d, now_d, _on(depth32, np.int32, device),
+    end_d, ok_d = _round1(
+        now_d, src_d, dst_d, svc_d, pipe_d, _on(depth32, np.int32, device),
         _on(chain.perm, np.int64, device), _on(chain.seg_start, np.int32, device),
-        _on(chain.rank, np.int32, device))
+        _on(chain.rank, np.int32, device), n_ports=n_ports)
     end = end_d.cpu().numpy()
     ok = ok_d.cpu().numpy()
     del svc_d, end_d
@@ -316,7 +332,7 @@ def netsim_fixed_point(
     while rounds < max_rounds:
         rounds += 1
         size = _bucket(rows.size)
-        sub_end = _replay(
+        sub_end = _gated_replay(
             now_d, src_d, dst_d, _on(_pad_rows(sub_svc, size), np.float64, device),
             _on(_pad_rows(sub_pipe, size), np.float64, device),
             _on(_pad_rows(cur, size), np.bool_, device),

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..build import MAX_SMEM_BYTES, check_launch, library
+from ..build import MAX_SMEM_BYTES, KernelError, check_launch, library
 from .ref import WORD_BITS, Baked
 
 __all__ = ["LAUNCHES", "MAX_FIELDS", "MAX_PIECES", "MAX_WORDS", "Plan", "Table",
@@ -125,8 +125,8 @@ def _launcher():
         lib = library("parser")
         lib.parser_table_bytes.restype = ctypes.c_int
         if lib.parser_table_bytes() != ctypes.sizeof(Table):
-            raise RuntimeError(f"csrc/parser.cu's Table is {lib.parser_table_bytes()} "
-                               f"bytes, kernel.Table {ctypes.sizeof(Table)}")
+            raise KernelError(f"csrc/parser.cu's Table is {lib.parser_table_bytes()} "
+                              f"bytes, kernel.Table {ctypes.sizeof(Table)}")
         fn = lib.parse_headers_u32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]

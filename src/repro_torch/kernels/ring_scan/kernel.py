@@ -23,7 +23,8 @@ from typing import Tuple
 
 import torch
 
-from ..build import MAX_SMEM_BYTES, check_launch, check_ports, check_tensor, library
+from ..build import (MAX_SMEM_BYTES, capturing, check_launch, check_ports, check_tensor,
+                     library)
 
 __all__ = ["LAUNCHES", "chain_step", "ring_scan", "tail_in_smem"]
 
@@ -83,9 +84,10 @@ def ring_scan(now: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if m == 0 or b == 0:
         return end, admit.view(torch.bool)
     check_ports(src, dst, n_ports)
-    lo, hi = torch.stack(torch.aminmax(mod)).tolist()
-    if lo < 1 or hi > d_max:
-        raise ValueError(f"mod must lie in [1, d_max={d_max}], got [{lo}, {hi}]")
+    if not capturing(mod):           # as check_ports: no host read in a capture
+        lo, hi = torch.stack(torch.aminmax(mod)).tolist()
+        if lo < 1 or hi > d_max:
+            raise ValueError(f"mod must lie in [1, d_max={d_max}], got [{lo}, {hi}]")
     q_n = n_ports * n_ports
     lib = _lib()
     smem_tail = tail_in_smem(n_ports)

@@ -32,12 +32,13 @@ import torch
 from repro_torch.core.archspec import (ForwardTableKind, SchedulerKind,
                                        SwitchArch, VOQKind)
 from repro_torch.switch.forward_table import _HASH_MULTS
-from ..build import MAX_SMEM_BYTES, check_launch, check_tensor, library
+from ..build import (MAX_SMEM_BYTES, KernelError, check_launch, check_tensor,
+                     library)
 from ..parser.ref import WORD_BITS, Baked
 from .ref import SwitchLoopOut
 
-__all__ = ["LAUNCHES", "MAX_PORTS", "KeyPieces", "Plan", "key_pieces", "plan",
-           "switch_loop_launch"]
+__all__ = ["LAUNCHES", "MAX_PORTS", "KeyPieces", "Plan", "chain_step", "key_pieces",
+           "plan", "switch_loop_launch"]
 
 #: kernel launches since the counter was last reset (``chip_smoke.py`` sets
 #: it to 0 before the main path and reads it after)
@@ -124,12 +125,22 @@ def _lib():
     if not getattr(lib, "_spac_typed", False):
         lib.switch_loop_key_pieces_bytes.restype = ctypes.c_int
         if lib.switch_loop_key_pieces_bytes() != ctypes.sizeof(KeyPieces):
-            raise RuntimeError("csrc/switch_loop.cu's KeyPieces and kernel.KeyPieces "
-                               "differ in size")
+            raise KernelError("csrc/switch_loop.cu's KeyPieces and kernel.KeyPieces "
+                              "differ in size")
         lib.switch_loop_i32.argtypes = [_P] * 3 + [_I] + [_P] * 9 + [_I] * 13 + [_P]
         lib.switch_loop_i32.restype = ctypes.c_int
+        lib.switch_loop_chain.argtypes = [_P, _I, _P]
+        lib.switch_loop_chain.restype = ctypes.c_int
         lib._spac_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mults(banks: int, dev: torch.device) -> torch.Tensor:
+    """The hash banks' multipliers on ``dev`` ([0] without banks), copied
+    there once: a launch makes no host-to-device copy."""
+    vals = [_HASH_MULTS[b % len(_HASH_MULTS)] for b in range(banks)] or [0]
+    return torch.tensor(vals, dtype=torch.int64).to(torch.uint32).to(dev)
 
 
 def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, words: torch.Tensor,
@@ -164,8 +175,7 @@ def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, words: torch.Ten
     shared = arch.voq is VOQKind.SHARED
     rem = torch.zeros((max(npkt, 1) if shared else 1,), dtype=torch.int32, device=dev)
     hashed = arch.fwd is ForwardTableKind.MULTIBANK_HASH
-    mults = torch.tensor([_HASH_MULTS[b % len(_HASH_MULTS)] for b in range(arch.hash_banks)]
-                         if hashed else [0], dtype=torch.int64).to(torch.uint32).to(dev)
+    mults = _mults(arch.hash_banks if hashed else 0, dev)
     gtable = None if p.table_shared else torch.empty((p.table_words,), dtype=torch.int32,
                                                      device=dev)
     gring = None if p.ring_shared else torch.empty((p.ring_words,), dtype=torch.int32,
@@ -187,3 +197,15 @@ def switch_loop_launch(arch: SwitchArch, arr_pid: torch.Tensor, words: torch.Ten
     LAUNCHES += 1
     return SwitchLoopOut(dep_cycle, occ_trace, occ_max, scalars[0], scalars[1],
                          scalars[2])
+
+
+def chain_step(io: torch.Tensor, steps: int) -> None:
+    """``steps`` of the least dependent step one cycle of the loop hands the
+    next (a ballot of the busy outputs, a shuffle of the hold, a maximum) on
+    one warp of ``io``'s device, in place: ``io`` [32] int32, one value a
+    lane.  Times the step; not a launch of the loop."""
+    check_tensor(io, "io", torch.int32, (32,), io.device)
+    with torch.cuda.device(io.device):
+        stream = torch.cuda.current_stream(io.device).cuda_stream
+        code = _lib().switch_loop_chain(io.data_ptr(), steps, stream)
+    check_launch(code, "switch_loop_chain")

@@ -52,7 +52,7 @@ def serve(cfg, params, *, requests: int = 8, slots: int = 4, max_new: int = 16,
         torch.cuda.synchronize(dev)
     return {"done": done, "requests": requests, "served": len(done),
             "tokens": sum(len(r.out) for r in done), "ticks": ticks,
-            "wall_s": time.perf_counter() - t0}
+            "wall_time_s": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     params = T.init_params(torch.Generator(dev).manual_seed(0), cfg, SINGLE_POD_PLAN)
     res = serve(cfg, params, requests=args.requests, slots=args.slots,
                 max_new=args.max_new, s_max=args.s_max)
-    dt, ticks = res["wall_s"], res["ticks"]
+    dt, ticks = res["wall_time_s"], res["ticks"]
     print(f"served {res['served']}/{res['requests']} requests, {res['tokens']} tokens, "
           f"{ticks} ticks, {dt:.1f}s ({1e3 * dt / max(ticks, 1):.2f} ms per tick) on {dev}")
     return 0 if res["served"] == res["requests"] else 1

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.analysis.retrace import track
 from repro_torch.core.archspec import SwitchArch, VOQKind
 from repro_torch.core.binding import BoundProtocol
 from repro_torch.core.dse import VerifyResult
@@ -62,6 +63,11 @@ from repro_torch.kernels.ring_scan import ring_scan
 from .backannotate import HardwareParams, annotate
 from .netsim import NetSimConfig, run_netsim, service_times
 from .timeline import stage4_timeline
+
+#: the ring-scan engine ``use_kernel="off"`` runs, tracked under the JAX
+#: package's name for its ``lax.scan`` engine
+_verify_engine = track("netsim.engine", ring_scan,
+                       static_argnames=("n_ports", "d_max"))
 
 __all__ = ["run_netsim_batched"]
 
@@ -163,7 +169,7 @@ def _run_group(archs, bounds, trace, hw_list, cfg,
     # ring size rounds up to a power of two, as in the JAX package
     mod = np.minimum(np.maximum(depth, 1), m).astype(np.int32)
     d_max = 1 << int(int(mod.max()) - 1).bit_length()
-    end, admit = ring_scan(
+    end, admit = _verify_engine(
         _on(now, np.float64, device), _on(tl4.src_o, np.int32, device),
         _on(tl4.dst_o, np.int32, device), _on(svc[:, order], np.float64, device),
         _on(pipe, np.float64, device), _on(depth.astype(np.int32), np.int32, device),

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.retrace import track
 from repro_torch.core.archspec import SwitchArch, VOQKind
 from repro_torch.core.binding import BoundProtocol
 from repro_torch.core.dse import SurrogateResult
@@ -47,7 +48,7 @@ __all__ = ["BatchedSurrogateResult", "run_surrogate_batched", "DEFAULT_QUANTILES
 DEFAULT_QUANTILES = (50.0, 90.0, 99.0)
 
 
-def _engine(dt, src, dst, svc, t, wire_bits, *, n_ports):
+def _engine_impl(dt, src, dst, svc, t, wire_bits, *, n_ports):
     """One call on ``svc``'s device: contention scan + throughput.
 
     Latency (one broadcast over dep) and quantile reduction stay on the
@@ -63,6 +64,9 @@ def _engine(dt, src, dst, svc, t, wire_bits, *, n_ports):
     # to a multiplication by its reciprocal, and the port repeats what runs
     thru = wire_bits / duration * 1e-9                          # [B] Gbps
     return dep, thru
+
+
+_engine = track("surrogate.engine", _engine_impl, static_argnames=("n_ports",))
 
 
 def _exact_occupancy(t, qid, dep):

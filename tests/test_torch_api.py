@@ -200,8 +200,8 @@ def test_cli_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(["run", "hft", "--duration-s", "2e-05", "--no-back-annotation"])
-    with pytest.raises(SystemExit):
-        port_main(["serve", "hft"])             # not registered until its slice
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["serve", "hft"])             # the service runs on the card too
 
 
 # --------------------------------------------------------------------------

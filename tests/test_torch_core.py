@@ -8,7 +8,7 @@ candidate lists, bound layouts, trace arrays from every generator, resource
 reports, trace features and the serial stage-2/stage-4 oracles are equal,
 floats bitwise.  The port imports neither ``jax`` nor ``repro``, runs on
 the card unless told otherwise, and refuses what it has not ported yet
-(mesh sharding and search checkpoints).
+(mesh sharding).
 """
 
 import jax
@@ -213,7 +213,7 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_paths_raise_not_implemented():
+def test_unported_paths_raise_not_implemented(tmp_path):
     bound = convert.from_reference(
         bind(compressed_protocol(addr_bits=4, length_bits=12), flit_bits=256))
     tr = convert.from_reference(hft(seed=0).head(64))
@@ -239,8 +239,14 @@ def test_unported_paths_raise_not_implemented():
     assert isinstance(problem, FabricDSEProblem)
     with pytest.raises(NotImplementedError, match="mesh"):
         run_scenario(port_registry["hft"].override(devices=2), device="cpu")
-    for fn, args in ((psearch.save_search_state, ("d", None)),
-                     (psearch.load_search_state, ("d", None, None)),
-                     (psearch.remesh_search_state, ({}, {}))):
-        with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-            fn(*args)
+    # search checkpoints are ported (tests/test_torch_checkpoint.py): the
+    # three state functions run instead of refusing
+    space = psearch.DesignSpace((psearch.Dim("a", (1, 2)),))
+    eng = psearch.NSGA2Search(space, psearch.SearchSpec(population=4,
+                                                        generations=1))
+    ck = str(tmp_path / "ck")
+    assert psearch.load_search_state(ck, space, eng.spec) is None
+    psearch.save_search_state(ck, eng)
+    assert psearch.load_search_state(ck, space, eng.spec).pending == eng.pending
+    tree, extra = psearch.remesh_search_state(*eng.state(), 2)
+    assert extra["mesh"] == {"devices": 2, "scenario_axis": 1}

@@ -328,7 +328,7 @@ def test_fabric_mesh_above_one_device_raises():
     topo = TOPOLOGIES["ring1"][0]
     tr = convert.from_reference(uniform(seed=0, n_ports=8).head(32))
     a = convert.from_reference(_nxn_candidates(8)[0])
-    with pytest.raises(NotImplementedError, match="item 3: mesh"):
+    with pytest.raises(NotImplementedError, match="queue 1: mesh"):
         evaluate_fabric_batched(topo, [(a,)], [(BOUND,)], tr, mesh=2,
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -316,7 +316,7 @@ def test_serve_loop_returns_its_counts():
     assert res["served"] == res["requests"] == 3 and res["tokens"] == 12
     assert sorted(r.rid for r in res["done"]) == [0, 1, 2]
     assert all(len(r.out) == 4 and r.done for r in res["done"])
-    assert res["ticks"] >= 4 and res["wall_s"] > 0
+    assert res["ticks"] >= 4 and res["wall_time_s"] > 0
 
 
 def test_default_device_raises_without_card():

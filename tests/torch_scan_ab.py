@@ -10,6 +10,7 @@ bitwise, over a matrix of shapes.
     python3 tests/torch_scan_ab.py --parts parser,switch   # a subset
     python3 tests/torch_scan_ab.py --parts parser_plans    # the parser's tiles
     python3 tests/torch_scan_ab.py --parts ring            # the ring-scan engine
+    python3 tests/torch_scan_ab.py --parts alone           # launch_ms vs torch.profiler
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -19,9 +20,12 @@ ungated and gated absolute float64, gated slack float32) at three of
 m 3,707, 8 ports), space480 (B 480) and datacenter (B 8, m 530, 32 ports),
 on timelines from ``chip_smoke.timeline``, and ``flash_attention`` and SDPA
 at llama3.2-1b's prefill.  Each scan form also gets ``kernel_ms``, the
-device time of its kernel alone under ``torch.profiler`` (the wrapper's
-``ms`` includes what the host does between launches, its port-id check
-among it).  The matrix: n_ports 4, 8, 32, 40 and 300; m 1, 31, 33, 530 and
+device time of its kernel alone from CUDA events around replays of a CUDA
+graph of one call (``chip_smoke.launch_ms``; the wrapper's ``ms`` includes
+what the host does between launches, its port-id check among it).  The
+graph needs a tree whose wrappers skip their host reads while the stream
+is capturing (``kernels/build.py``'s ``capturing``); ``--src`` naming an
+older tree times its calls (``ms``) but not its kernels alone.  The matrix: n_ports 4, 8, 32, 40 and 300; m 1, 31, 33, 530 and
 3,707; B 7 (not a multiple of the rows a block holds), its first row
 admitting no event and its second every event.  ``parser``: the header
 parser's forms of ``chip_smoke.py`` (the hft, datacenter and
@@ -41,7 +45,12 @@ parts): the ring-scan stage-4 kernel at ``chip_smoke.py``'s
 after half a second idle (``kernel_ms_cold``), over 3 calls just after
 ~0.2 s of a busy one-thread kernel (``kernel_ms_warm``) and over 300
 calls (``kernel_ms_300``), and a call (``ms``): a kernel this short is
-timed on a card whose clocks may not have ramped up.
+timed on a card whose clocks may not have ramped up.  ``alone`` (not in
+the default parts): each kernel alone at one form (xbar and netsim at hft,
+the parser at hft's and Ethernet/IPv4/UDP's 9,600 and 1,048,576 headers,
+``switch_loop`` at hft's rung-4 champion, the ring scan at hft) by
+``chip_smoke.launch_ms`` and by a ``torch.profiler`` window of the same
+calls in the same process, to hold the one against the other.
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
@@ -76,9 +85,6 @@ FORMS = ("xbar_abs_f64", "xbar_slack_f32", "netsim_ungated_abs_f64",
 MATRIX_PORTS = (4, 8, 32, 40, 300)
 MATRIX_M = (1, 31, 33, 530, 3707)
 MATRIX_B = 7
-#: kernel names of the scans in this tree and in the trees before it
-SCAN_KERNELS = ("port_scan", "xbar_scan_kernel", "netsim_replay_kernel",
-                "ring_scan_kernel")
 
 
 def card():
@@ -100,23 +106,9 @@ def cuda_ms(torch, fn, reps):
 
 
 def kernel_ms(torch, fn, reps):
-    """Device time of the scan kernels alone per call, under torch.profiler;
-    a window that lost kernel records (a count that is not a whole number
-    per call) is retaken, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if any(k in e.key for k in SCAN_KERNELS)]
-        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                 for e in hits)
-        if us and sum(e.count for e in hits) % reps == 0:
-            return us / reps / 1e3
-    raise AssertionError("torch.profiler recorded no whole window of scan kernels")
+    """Device time per call of the kernels alone: CUDA events around
+    replays of a CUDA graph of one call (``chip_smoke.launch_ms``)."""
+    return CS.launch_ms(fn, reps)
 
 
 def form_calls(torch, dev, form, arrays, n):
@@ -202,7 +194,7 @@ def time_parser(torch, dev, reps):
             equal = bool(torch.equal(kern(), parse_ref(proto, fields, words)))
             w = words.shape[1]
             bound_ms = b * (w + len(fields)) * 4 / CS.HBM_BYTES_PER_S * 1e3
-            k_ms = CS.kernel_alone_ms(kern, "parse_kernel", reps)
+            k_ms = CS.launch_ms(kern, reps)
             print(json.dumps({"form": f"parser_{name}", "B": b, "words": w,
                               "fields": len(fields), "ms": cuda_ms(torch, kern, reps),
                               "kernel_ms": k_ms, "bound_ms": bound_ms,
@@ -233,7 +225,7 @@ def time_parser_plans(torch, dev, reps):
                 kern = lambda: parse_headers(proto, fields, words)   # noqa: E731
                 if not torch.equal(kern(), parse_ref(proto, fields, words)):
                     raise AssertionError(f"parser plan {rec} disagrees at {key}")
-                rec[f"{key}_kernel_ms"] = CS.kernel_alone_ms(kern, "parse_kernel", reps)
+                rec[f"{key}_kernel_ms"] = CS.launch_ms(kern, reps)
             print(json.dumps(rec), flush=True)
     finally:
         pk.TILE_WORDS, pk.BLOCKS_PER_SM = chosen
@@ -260,7 +252,7 @@ def time_switch(torch, dev, reps):
     got = kern()
     t = arr.shape[0]
     ms = cuda_ms(torch, kern, reps)
-    k_ms = CS.kernel_alone_ms(kern, "switch_loop_kernel", reps)
+    k_ms = CS.launch_ms(kern, reps)
     # the eager loop takes minutes here; chip_smoke.py holds the kernel to it
     print(json.dumps({"form": "switch_loop_hft_rung4_champion", "cycles": t, "ms": ms,
                       "kernel_ms": k_ms, "us_per_cycle": ms * 1e3 / t,
@@ -312,6 +304,57 @@ def time_flash(torch, dev, reps):
             q, k, v, is_causal=True, enable_gqa=True), reps)}), flush=True)
 
 
+def profiler_ms(torch, fn, name, reps):
+    """Device time per call of the kernels whose names hold ``name``, in one
+    torch.profiler window, and the records it kept."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in hits)
+    return us / reps / 1e3, sum(e.count for e in hits)
+
+
+def time_alone(torch, dev, reps):
+    from repro_torch.kernels.parser import parse_headers
+    from repro_torch.kernels.ring_scan import ring_scan
+    from repro_torch.kernels.switch_loop import kernel as slk
+    b, m, n = SHAPES["hft"]
+    arrays = arrays_of(0, m, n, b)
+    calls = [(f"{form}_hft", "port_scan", form_calls(torch, dev, form, arrays, n)[0], reps)
+             for form in ("xbar_abs_f64", "netsim_ungated_abs_f64")]
+    for name in ("hft", "ethernet_ipv4_udp"):
+        proto = CS.parser_protocol(name)
+        fields = [f.name for f in proto.fields]
+        for rows in CS.PARSER_BATCHES:
+            words = CS.parser_words(proto, rows, dev)
+            calls.append((f"parser_{name}_B{rows}", "parse",
+                          lambda p=proto, f=fields, w=words: parse_headers(p, f, w), reps))
+    arch, bound, trace, fclk, cycles = CS.switch_loop_forms(dev)["hft_rung4_champion"]
+    loop_args = CS._switch_form(arch, bound, trace, fclk, cycles, dev)
+    calls.append(("switch_loop_hft_rung4_champion", "switch_loop",
+                  lambda: slk.switch_loop_launch(arch, *loop_args), 3))
+    n8, m8, mixed = CS.RING_SHAPES["hft"]
+    t, src, dst, svc, pipe, _ = CS.timeline(np.random.default_rng(n8), m8, n8,
+                                            len(mixed), f64=True)
+    depth = np.asarray(mixed, np.int32)
+    mod = np.minimum(np.maximum(depth, 1), m8).astype(np.int32)
+    d_max = 1 << int(int(mod.max()) - 1).bit_length()
+    ring_args = [torch.tensor(a, device=dev) for a in (t, src, dst, svc, pipe, depth, mod)]
+    calls.append(("ring_hft_mixed", "ring_scan",
+                  lambda: ring_scan(*ring_args, n_ports=n8, d_max=d_max), reps))
+    for form, name, fn, r in calls:
+        prof, records = profiler_ms(torch, fn, name, r)
+        print(json.dumps({"form": form, "launch_ms": CS.launch_ms(fn, r),
+                          "profiler_ms": prof, "profiler_records": records,
+                          "calls": r}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(REPO, "src"),
@@ -320,7 +363,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parts", default="scans,flash,parser,switch",
                     help="comma-separated subset of scans, flash, parser, switch, "
-                         "parser_plans, ring")
+                         "parser_plans, ring, alone")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import torch
@@ -345,6 +388,8 @@ def main(argv=None):
         time_parser_plans(torch, dev, args.reps)
     if "ring" in parts:
         time_ring(torch, dev, args.reps)
+    if "alone" in parts:
+        time_alone(torch, dev, args.reps)
     return 0 if ok else 1
 
 

@@ -128,9 +128,10 @@ def time_serving(torch, dev, serves):
     for run in range(1, serves + 1):
         res = launcher.serve(cfg, params, **SERVE_ENGINE)
         res.pop("done")
+        wall = res.get("wall_time_s", res.get("wall_s"))   # older trees: wall_s
         print(json.dumps({"serve": cfg.name, "run": run, **res,
-                          "ms_per_tick": res["wall_s"] * 1e3 / max(res["ticks"], 1),
-                          "tokens_per_s": res["tokens"] / res["wall_s"]}), flush=True)
+                          "ms_per_tick": wall * 1e3 / max(res["ticks"], 1),
+                          "tokens_per_s": res["tokens"] / wall}), flush=True)
 
 
 def main(argv=None):
