@@ -54,7 +54,7 @@ final ``{"ok": true, ...}`` line:
            a CUDA graph of one call, for xbar, netsim, the parser, switch_loop (with
            its chain bound: its cycles times the least dependent step one
            cycle hands the next, measured) and the ring scan.
-  path     six main paths, each with every kernel's launch counter set to 0
+  path     seven main paths, each with every kernel's launch counter set to 0
            just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2,
            hft_codesign and fattree_dc with the settings their golden
@@ -109,10 +109,30 @@ final ``{"ok": true, ...}`` line:
            and to the uninterrupted run, xbar and netsim launched by the
            stopped and the resumed run; then check over the registry, every
            scenario clean.
+           (g) the mesh, with REPRO_TORCH_FORCE_DEVICE_COUNT=8 for its
+           duration (restored after; one card runs a mesh's shards in
+           turn): on hft, 21 candidates of 8 ports, stage 2 and both
+           stage-4 engines on meshes 2, 8, 2x2 and 4x2, and B 1 and 7 on
+           8 shards, bitwise equal to the serial calls, with xbar,
+           netsim and ring-scan launches per sharded call at least the
+           shard count; a low-depth batch whose fixed point runs the
+           sharded gated replay; hft_nsga2 on 2 shards and fattree_dc on
+           2 and 4 against their goldens; NSGA-II on hft (population 16,
+           4 generations, seed 7) stopped after 2 generations on 8
+           shards and resumed on 2, then 2 on 8, against the serial run
+           (front, hv_history, the next 16 RNG draws); the DSE service
+           on 2 shards on the five goldens; apply_moe (d 128, 8 experts,
+           top-2, capacity 8.0, 8 x 32 bf16 tokens) on (data, model)
+           meshes (1,1), (2,4), (4,2) and (8,1) in bf16 and int8, each
+           within 3e-2 of (1,1), quantize and dequantize launching on
+           int8; at capacity 1.0 on (2,4) the drop fraction and loads.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
            run_netsim; per-stage wall time, kernel ms, peak device memory;
+           the same run_dse on 8 shards of the one card (forced count 8),
+           every stage-2 and stage-4 array bitwise the serial run's, with
+           its stage walls, launches and kernel ms;
            the same run_dse under both stage-4 engines in the order auto,
            off, off, auto, the timeline memo cleared before each run, every
            stage-4 result equal to the first auto run's (ring_scan ms, stage
@@ -176,6 +196,14 @@ Y_RTOL = 2e-2
 #: loop's ingress parse runs its two-piece path: (name, bits, semantic)
 MULTIWORD_FIELDS = (("flow", 54, None), ("dst", 12, "routing_key"),
                     ("src", 12, "src_key"), ("len", 14, "length"))
+#: path (g): the forced device count (REPRO_TORCH_FORCE_DEVICE_COUNT), the
+#: engine matrix's meshes (devices, scenario_axis) at B 21, the padding
+#: edges on 8 shards, and the MoE layouts (data, model) with their bar
+MESH_FORCED = 8
+MESH_SHAPES = ((2, 1), (8, 1), (2, 2), (4, 2))
+MESH_EDGES = (1, 7)
+MOE_LAYOUTS = ((1, 1), (2, 4), (4, 2), (8, 1))
+MOE_ATOL = 3e-2
 #: the full-width MoE layer of the scale phase
 SCALE_ARCH = "qwen3-moe-235b-a22b"
 SCALE_TOKENS = (8, 1024)
@@ -1467,7 +1495,8 @@ def phase_path(dev, stats):
     """The main paths on the card, each with fresh launch counters."""
     failures = (path_golden(dev, stats) + path_switch(dev, stats)
                 + path_comm(dev, stats) + path_serving(dev, stats)
-                + path_served(dev, stats) + path_resume(dev, stats))
+                + path_served(dev, stats) + path_resume(dev, stats)
+                + path_mesh(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -1680,6 +1709,276 @@ def path_resume(dev, stats):
     say("path", path="check", scenarios=len(diags), dirty=dirty)
     if dirty:
         failures.append(f"check found problems in {dirty}")
+    return failures
+
+
+class forced_devices:
+    """``REPRO_TORCH_FORCE_DEVICE_COUNT`` set for a block, then restored."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        from repro_torch.launch.mesh import FORCE_ENV
+        self.prev = os.environ.get(FORCE_ENV)
+        os.environ[FORCE_ENV] = str(self.n)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch.mesh import FORCE_ENV
+        if self.prev is None:
+            os.environ.pop(FORCE_ENV, None)
+        else:
+            os.environ[FORCE_ENV] = self.prev
+
+
+def path_mesh(dev, stats):
+    """(g) the mesh: with REPRO_TORCH_FORCE_DEVICE_COUNT=8, so one card runs
+    each mesh's shards in turn.  The engine matrix (hft, 8-port candidates,
+    B 21 on meshes 2, 8, 2x2 and 4x2; B 1 and 7 on 8 shards; a low-depth
+    batch whose fixed point runs the sharded gated replay) bitwise equal to
+    the serial calls, with xbar, netsim and ring-scan launches per sharded
+    call at least the shard count; hft_nsga2 at 2 shards and fattree_dc at
+    2 and 4 against their goldens; a search stopped on 8 shards resumed on
+    2, and 2 on 8, against the uninterrupted serial run (front, hv_history,
+    the next 16 RNG draws); the DSE service on 2 shards on the goldens; the
+    MoE fabric over (data, model) meshes in both payloads."""
+    import torch
+    with forced_devices(MESH_FORCED):
+        say("path", path="mesh", physical_devices=torch.cuda.device_count(),
+            forced_devices=MESH_FORCED)
+        return (mesh_engines(dev, stats) + mesh_reports(dev, stats)
+                + mesh_resume(dev, stats) + mesh_served(dev, stats)
+                + mesh_moe(dev, stats))
+
+
+def _same_stage2(a, b, rows=None) -> bool:
+    import numpy as np
+    return all(np.array_equal(getattr(a, f), getattr(b, f)[:rows])
+               for f in ("latency_ns", "q_occupancy", "dep_end_s",
+                         "throughput_gbps", "line_rate_feasible"))
+
+
+def mesh_engines(dev, stats):
+    from repro_torch.analysis.retrace import call_counts, tracked_names
+    from repro_torch.core import (ArchRequest, bind, compressed_protocol,
+                                  enumerate_candidates)
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.sim import run_netsim_batched, run_surrogate_batched
+    from repro_torch.traces import hft
+
+    failures, recs = [], []
+    bound = bind(compressed_protocol(addr_bits=4, length_bits=6), flit_bits=256)
+    tr = hft(seed=0)
+    cands = enumerate_candidates(ArchRequest(n_ports=8, addr_bits=4))[:21]
+    low = [a.with_depth(d) for a in cands[:6] for d in (1, 2)]
+    kw = dict(back_annotation=False, device=dev)
+    s2 = run_surrogate_batched(cands, bound, tr, **kw)
+    s4 = {u: run_netsim_batched(cands, bound, tr, use_kernel=u, **kw)
+          for u in ("auto", "off")}
+    s4_low = run_netsim_batched(low, bound, tr, use_kernel="auto", **kw)
+    cases = ([(f"{d}x{sa}" if sa > 1 else str(d), MeshSpec(d, sa), cands)
+              for d, sa in MESH_SHAPES]
+             + [(f"8 B{b}", MeshSpec(8), cands[:b]) for b in MESH_EDGES])
+
+    def sharded(case, fn, shards, kernel):
+        _reset_counters()
+        out = fn()
+        n = _read_counters()[kernel]
+        if n < shards:
+            failures.append(f"mesh {case}: {kernel} launched {n} times for "
+                            f"{shards} shards")
+        return out, n
+
+    for name, mesh, cs in cases:
+        b, k = len(cs), mesh.shard_axis
+        rec = {"path": "mesh", "case": name, "rows": b, "shards": k}
+        got2, rec["xbar_scan"] = sharded(f"{name} stage 2", lambda: run_surrogate_batched(
+            cs, bound, tr, mesh=mesh, **kw), k, "xbar_scan")
+        ok = _same_stage2(got2, s2, rows=b)
+        for u, kern in (("auto", "netsim_replay"), ("off", "ring_scan")):
+            got4, rec[kern] = sharded(f"{name} stage 4 {u}", lambda: run_netsim_batched(
+                cs, bound, tr, use_kernel=u, mesh=mesh, **kw), k, kern)
+            ok = ok and all(_same_verify(g, w) for g, w in zip(got4, s4[u][:b]))
+        rec["bitwise"] = ok
+        recs.append(rec)
+        say("path", **rec)
+        if not ok:
+            failures.append(f"mesh {name}: differs from the serial engines")
+    replay = "netsim.kernel.replay.sharded[1x8 scenario,cand n_ports=8]"
+    before = call_counts(replay) if replay in tracked_names() else {}
+    got, n = sharded("8 low depth", lambda: run_netsim_batched(
+        low, bound, tr, use_kernel="auto", mesh=8, **kw), 8, "netsim_replay")
+    replays = sum(call_counts(replay).values()) - sum(before.values())
+    ok = all(_same_verify(g, w) for g, w in zip(got, s4_low))
+    rec = {"path": "mesh", "case": "8 low depth", "rows": len(low), "shards": 8,
+           "netsim_replay": n, "gated_replay_calls": replays,
+           "drops": any(v.drop_rate > 0 for v in got), "bitwise": ok}
+    recs.append(rec)
+    say("path", **rec)
+    if not ok or replays < 1 or n < 16:
+        failures.append(f"mesh low depth: bitwise {ok}, {replays} sharded "
+                        f"replays, {n} netsim launches")
+    stats["mesh"] = {"engines": recs}
+    return failures
+
+
+def mesh_reports(dev, stats):
+    from repro_torch.api import run_scenario
+    from repro_torch.launch.mesh import MeshSpec
+
+    failures = []
+    for name, d in (("hft_nsga2", 2), ("fattree_dc", 2), ("fattree_dc", 4)):
+        scen, want = _golden_scenario(name)
+        _reset_counters()
+        report = run_scenario(scen, mesh=MeshSpec(devices=d), device=dev)
+        launches = _read_counters()
+        errors = diff_reports(json.loads(json.dumps(report.to_dict())), want)
+        rec = {"path": "mesh", "report": name, "devices": d,
+               "mismatches": len(errors), "first_mismatches": errors[:5],
+               "wall_s": report.wall_time_s, "stage2_s": report.stage2_time_s,
+               "stage4_s": report.stage4_time_s,
+               "launches": {k: launches[k] for k in ("xbar_scan", "netsim_replay")}}
+        stats["mesh"].setdefault("reports", []).append(rec)
+        say("path", **rec)
+        if errors:
+            failures.append(f"mesh {name} on {d}: {errors[:3]}")
+    return failures
+
+
+def mesh_resume(dev, stats):
+    """NSGA-II on hft (population 16, 4 generations, seed 7): stopped after
+    2 generations on 8 shards and resumed on 2, then 2 on 8."""
+    import tempfile
+    import numpy as np
+    from repro_torch.api import build_problem, registry
+    from repro_torch.api.scenario import SearchSpec
+    from repro_torch.core.search import load_search_state, run_search
+    from repro_torch.launch.mesh import MeshSpec
+
+    scn = registry["hft"].override(
+        back_annotation=False, search=SearchSpec(population=16, generations=4, seed=7))
+
+    def search(mesh, ck, resume=False, cut=None):
+        problem, sla, _ = build_problem(scn, mesh=mesh, device=dev)
+        return run_search(problem, scn.search, sla, delta=scn.fidelity.delta,
+                          checkpoint_dir=ck, resume=resume,
+                          max_generations_this_run=cut)
+
+    def front(out):
+        return sorted(c.short() for c, _ in out.valid)
+
+    failures = []
+    space = build_problem(scn, device=dev)[0].space()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ref_ck = os.path.join(tmp, "serial")
+        ref = search(None, ref_ck)
+        eng_ref = load_search_state(ref_ck, space, scn.search)
+        draws_ref = eng_ref.rng.random(16)
+        for n, m in ((8, 2), (2, 8)):
+            ck = os.path.join(tmp, f"{n}to{m}")
+            t0 = time.perf_counter()
+            search(MeshSpec(devices=n), ck, cut=2)
+            out = search(MeshSpec(devices=m), ck, resume=True)
+            wall = time.perf_counter() - t0
+            eng = load_search_state(ck, space, scn.search)
+            same = (out.resumed and front(out) == front(ref)
+                    and out.hv_history == ref.hv_history
+                    and eng.hv_history == eng_ref.hv_history
+                    and np.array_equal(eng.rng.random(16), draws_ref))
+            rec = {"path": "mesh", "resume": f"{n}->{m}", "front": front(out),
+                   "hv_history": out.hv_history, "bitwise": bool(same),
+                   "stop_and_resume_s": wall}
+            stats["mesh"].setdefault("resume", []).append(rec)
+            say("path", **rec)
+            if not same:
+                failures.append(f"mesh resume {n}->{m} differs from the serial run")
+    return failures
+
+
+def mesh_served(dev, stats):
+    """The DSE service on 2 shards: the goldens, each equal to its golden;
+    the counters read only around the served wave."""
+    from repro_torch.api import DSEServeEngine
+
+    failures = []
+    scen = {name: _golden_scenario(name) for name in GOLDEN}
+    eng = DSEServeEngine(device=dev, mesh=2, **SERVED)
+    _reset_counters()
+    t0 = time.perf_counter()
+    reqs = {n: eng.submit(scen[n][0]) for n in GOLDEN}
+    eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    for name, req in reqs.items():
+        errors = ([f"error: {req.error}"] if req.error is not None
+                  else diff_reports(req.report, scen[name][1]))
+        if errors:
+            failures.append(f"mesh served {name}: {errors[:3]}")
+    rec = {"path": "mesh", "served": list(GOLDEN), "devices": 2, "wall_s": wall,
+           "failures": len(failures),
+           "launches": {k: launches[k] for k in ("xbar_scan", "netsim_replay")}}
+    stats["mesh"]["served"] = rec
+    say("path", **rec)
+    if not (launches["xbar_scan"] > 0 and launches["netsim_replay"] > 0):
+        failures.append(f"xbar/netsim did not run on the sharded service: {launches}")
+    return failures
+
+
+def mesh_moe(dev, stats):
+    """apply_moe (d 128, 8 experts, top-2, capacity 8.0; 8 x 32 tokens in
+    bfloat16) on the (data, model) layouts, both payloads, each within
+    MOE_ATOL of (1, 1); quantize and dequantize launch on int8; at capacity
+    1.0 on (2, 4) the drop fraction and loads, recorded."""
+    import torch
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import SINGLE_POD_PLAN, ModelConfig, MoEOptions
+    from repro_torch.models.moe import apply_moe, init_moe
+
+    failures = []
+    cfg = ModelConfig(name="t", family="moe", n_layers=1, d_model=128, n_heads=4,
+                      n_kv_heads=2, d_ff=256, vocab=512, moe_experts=8, moe_topk=2,
+                      capacity_factor=8.0)
+    params = init_moe(torch.Generator(dev).manual_seed(0), cfg, SINGLE_POD_PLAN)
+    x = torch.randn((8, 32, 128), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    recs = []
+    for payload in ("bf16", "int8"):
+        opts = MoEOptions(capacity_factor=8.0, payload=payload)
+        ys = {}
+        for shape in MOE_LAYOUTS:
+            mesh = compat_make_mesh(shape, ("data", "model"), dev)
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = apply_moe(params, cfg, SINGLE_POD_PLAN, mesh, x, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counters()
+            ys[shape] = y
+            err = float((y.float() - ys[MOE_LAYOUTS[0]].float()).abs().max())
+            finite = bool(torch.isfinite(y.float()).all())
+            rec = {"path": "mesh", "moe": "x".join(map(str, shape)), "payload": payload,
+                   "max_abs_err_vs_1x1": err, "finite": finite, "wall_s": wall,
+                   "drop_frac": float(aux["drop_frac"]),
+                   "quantize": launches["quantize"], "dequantize": launches["dequantize"]}
+            recs.append(rec)
+            say("path", **rec)
+            if err > MOE_ATOL or not finite:
+                failures.append(f"mesh moe {shape} {payload}: {err} from (1, 1)")
+            if payload == "int8" and not (launches["quantize"] > 0
+                                          and launches["dequantize"] > 0):
+                failures.append(f"mesh moe {shape}: quantize/dequantize did not "
+                                f"launch: {launches}")
+    mesh = compat_make_mesh((2, 4), ("data", "model"), dev)
+    _, aux = apply_moe(params, cfg, SINGLE_POD_PLAN, mesh, x,
+                       MoEOptions(capacity_factor=1.0))
+    drops = {"drop_frac": float(aux["drop_frac"]),
+             "expert_load": aux["expert_load"].tolist()}
+    if int(aux["expert_load"].sum()) != 8 * 32 * 2:
+        failures.append(f"mesh moe cf 1.0: loads {drops['expert_load']}")
+    say("path", path="mesh", moe="2x4 capacity 1.0", **drops)
+    stats["mesh"]["moe"] = {"layouts": recs, "cf1_2x4": drops}
     return failures
 
 
@@ -2201,6 +2500,7 @@ def phase_scale(dev, stats):
     stats["scale"].append(rec)
     say("scale", **rec)
     del problem, result, log, svc_t, t_d, src_d, dst_d, pipe_d
+    scale_mesh_dse(dev, stats, scen, kw, rec, r2, c4, r4)
     scale_engines_dse(dev, stats, scen, kw, rec, c4, r4)
     del c4, r4
 
@@ -2266,6 +2566,72 @@ def _engine_walls(recs, key):
     for r in recs:
         out.setdefault(r["engine"], []).append(r[key])
     return out
+
+
+def scale_mesh_dse(dev, stats, scen, kw, first, r2_auto, c4_auto, r4_auto):
+    """The 40 ms run_dse again on 8 shards of the one card
+    (REPRO_TORCH_FORCE_DEVICE_COUNT=8), the timeline memo cleared first:
+    every stage-2 and stage-4 array bitwise the serial auto run's
+    (``first``); stage walls, launches and kernel time beside it."""
+    import numpy as np
+    import torch
+    from repro_torch.api import build_problem
+    from repro_torch.core.dse import run_dse
+    from repro_torch.kernels.netsim import kernel as nk
+    from repro_torch.kernels.ring_scan import kernel as rk
+    from repro_torch.kernels.xbar import kernel as xk
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.sim import timeline as memo
+
+    memo.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with forced_devices(MESH_FORCED):
+        problem, sla, budget = build_problem(
+            scen.override(trace_params={"duration_s": 0.04}), device=dev)
+        log, events = {}, []
+        _timed(problem, "surrogate_batch", log)
+        _timed(problem, "verify_batch", log)
+        undo = _kernel_timer(events, {"xbar_scan": xk, "netsim_replay": nk,
+                                      "ring_scan": rk})
+        _reset_counters()
+        try:
+            t0 = time.perf_counter()
+            result = run_dse(problem, sla, budget, mesh=MeshSpec(devices=MESH_FORCED),
+                             **kw)
+            t_dse = time.perf_counter() - t0
+        finally:
+            undo()
+    launches = _read_counters()
+    (s2, _, r2), = log["surrogate_batch"]
+    (s4, c4, r4), = log["verify_batch"]
+    same2 = len(r2) == len(r2_auto) and all(
+        np.array_equal(a.latency_ns, b.latency_ns)
+        and np.array_equal(a.q_occupancy, b.q_occupancy)
+        and a.throughput_gbps == b.throughput_gbps for a, b in zip(r2, r2_auto))
+    same4 = ([c.short() for c in c4] == [c.short() for c in c4_auto]
+             and all(_same_verify(a, b) for a, b in zip(r4, r4_auto)))
+    rec = {"run": f"run_dse hft duration_s=0.04 mesh={MESH_FORCED}",
+           "engine": "auto", "shards": MESH_FORCED, "events": len(problem.trace),
+           "stage2_rows": len(r2), "stage4_rows": len(c4),
+           "best": result.best.short() if result.best is not None else None,
+           "run_dse_s": t_dse, "stage2_s": s2, "stage4_s": s4,
+           "serial_run_dse_s": first["run_dse_s"], "serial_stage2_s": first["stage2_s"],
+           "serial_stage4_s": first["stage4_s"],
+           "kernel_ms": _kernel_ms(events, 0),
+           "serial_xbar_ms_at_this_shape": first["xbar_ms_at_this_shape"],
+           "serial_netsim_round1_ms_at_this_shape": first["netsim_round1_ms_at_this_shape"],
+           "launches": {k: launches[k] for k in ("xbar_scan", "netsim_replay", "ring_scan")},
+           "serial_launches": first["launches"],
+           "stage2_equal_to_serial": same2, "stage4_equal_to_serial": same4,
+           "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
+    stats["scale"].append(rec)
+    say("scale", **rec)
+    del problem, result, log, r2, c4, r4
+    if not (same2 and same4):
+        raise AssertionError("run_dse on 8 shards differs from the serial run")
+    if launches["xbar_scan"] < MESH_FORCED or launches["netsim_replay"] < MESH_FORCED:
+        raise AssertionError(f"run_dse on 8 shards launched fewer kernels than "
+                             f"shards: {launches}")
 
 
 def scale_engines_dse(dev, stats, scen, kw, first, c4_auto, r4_auto):

@@ -24,8 +24,11 @@
 
 Every subcommand that runs takes ``--device`` (default ``cuda``: the port
 runs on the card and raises without one; ``--device cpu`` runs the kernels'
-plain PyTorch versions).  ``--devices N`` above 1 raises: a mesh is not
-ported yet (ROADMAP queue 1: mesh).
+plain PyTorch versions).  ``--devices N`` (and ``--scenario-devices M``)
+shard the batched stages over a mesh of N (x M) devices of that type, with
+the serial report; a mesh larger than the devices available exits with
+the count it needed and the count there is (``REPRO_TORCH_FORCE_DEVICE_COUNT``
+raises the count: one card then runs the shards in turn).
 
 Serve request schema (JSON): a list of entries; each entry is a registry
 name, a scenario dict, or ``{"base"|"scenario": ..., "seed": ..., "repeat":
@@ -281,7 +284,7 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                         "kernels, raises without a card) or cpu (their plain "
                         "PyTorch versions)")
     gm = p.add_argument_group(
-        "device mesh (not ported yet: any N > 1 raises)")
+        "device mesh (results are bit-identical at any device count)")
     gm.add_argument("--devices", type=int, default=None, metavar="N",
                     help="shard the batched stage-2/stage-4 scans over N "
                          "devices (default 1 = the serial path; an execution "
@@ -300,7 +303,12 @@ def _mesh_from_args(args):
         return None
     from .scenario import MeshSpec
     try:
-        spec = MeshSpec(devices=devices or 1, scenario_axis=scenario_axis or 1)
+        # 0 is an extent MeshSpec refuses, not "unset" (the reference's
+        # ``devices or 1`` runs --devices 0 serially)
+        spec = MeshSpec(devices=1 if devices is None else devices,
+                        scenario_axis=1 if scenario_axis is None else scenario_axis)
+        if not spec.is_single():
+            spec.build(args.device)      # more shards than devices: exit
     except ValueError as e:
         raise SystemExit(str(e)) from e
     return None if spec.is_single() else spec
@@ -450,8 +458,8 @@ def build_parser() -> argparse.ArgumentParser:
     vp.add_argument("--verify-width", type=int, default=16,
                     help="fixed stage-4 netsim chunk width (rows)")
     vp.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="shard every chunk over N devices (not ported "
-                         "yet: any N > 1 raises)")
+                    help="shard every chunk over N devices (reports are "
+                         "bit-identical at any device count)")
     vp.add_argument("--device", default="cuda",
                     help="where the service runs: cuda (default; the "
                          "hand-written kernels, raises without a card) or "

@@ -19,10 +19,10 @@ trace + feature analysis.  The campaign report carries aggregate stage-2
 The port's copy of the JAX package's ``api/runner.py``.  Every entry point
 takes ``device`` (default: the first CUDA device; raises without one),
 where the batched stages, back-annotation and the cycle-level switch run.
-Single-switch, fabric and comm-domain scenarios run here; a scenario with a
-mesh raises ``NotImplementedError`` (ROADMAP queue 1: mesh).  (A comm
-scenario runs its fabric on one device whatever its mesh, as in the
-reference.)
+Single-switch, fabric and comm-domain scenarios run here; a scenario's
+mesh shards the batched stages over devices of that type, with the serial
+report.  (A comm scenario runs its fabric on one device whatever its mesh,
+as in the reference.)
 """
 
 from __future__ import annotations
@@ -150,9 +150,10 @@ def build_problem(
 
     ``trace``/``features`` let a campaign hand scenarios that share a
     ``TraceSpec`` one built trace and one feature analysis.  ``mesh``
-    (a ``MeshSpec`` or device count) overrides ``scenario.mesh``; a mesh is
-    not ported yet and raises.  ``device`` is where the problem runs
-    (default: the first CUDA device).
+    (a ``MeshSpec`` or device count) overrides ``scenario.mesh``; either
+    shards the batched stages across a mesh of ``device``'s type, with
+    results bit-identical to the serial path.  ``device`` is where the
+    problem runs (default: the first CUDA device).
     """
     mesh = MeshSpec.coerce(mesh) if mesh is not None else scenario.mesh
     budget = scenario.budget or _default_budget(scenario)
@@ -445,11 +446,12 @@ def run_scenario(scenario: Union[Scenario, str], *, verbose: bool = False,
     With ``scenario.search`` set, stages 1-2 are replaced by the seeded
     generational NSGA-II engine (``repro_torch.core.search``); the final
     archive feeds the identical stage-3/4 ladder.  ``resume`` continues a
-    checkpointed search from ``search.checkpoint_dir`` (not ported yet:
-    checkpoints raise).
+    checkpointed search from ``search.checkpoint_dir``.
 
     ``mesh`` (a ``MeshSpec`` / device count, winning over ``scenario.mesh``)
-    is not ported yet and raises.  ``device`` is where the scenario runs
+    shards the batched stages across the device mesh without entering the
+    report: a scenario's report is mesh-invariant.  ``device`` is where the
+    scenario runs
     (default: the first CUDA device).  ``problem`` is one already built for
     ``scenario`` (``repro_torch.convert.comm_problem`` builds one with the
     reference's tensors); by default it is built here, inside the wall time.
@@ -578,8 +580,11 @@ def run_campaign(
     ``search.checkpoint_dir/<scenario name>``.
 
     ``mesh`` (a ``MeshSpec`` / device count, winning over each scenario's
-    own ``mesh``) is not ported yet and raises.  ``device`` is where every
-    scenario runs (default: the first CUDA device).
+    own ``mesh``) shards every group's batched stage-2/stage-4 call over the
+    device mesh.  A ``scenario_axis > 1`` spreads the candidate axis over a
+    second, data-parallel mesh dimension as well; results are
+    mesh-invariant.  ``device`` is where every scenario runs (default: the
+    first CUDA device).
     """
     scns = [registry[s] if isinstance(s, str) else s for s in scenarios]
     if not scns:

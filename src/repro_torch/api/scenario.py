@@ -39,6 +39,7 @@ from repro_torch.core.dsl import (CODESIGN_ADDR_CHOICES, CODESIGN_LENGTH_CHOICES
                                   ethernet_ipv4_udp)
 from repro_torch.core.search import SearchSpec
 from repro_torch.fabric.topology import TopologySpec
+from repro_torch.launch.mesh import MeshSpec
 
 __all__ = [
     "ProtocolSpec",
@@ -58,64 +59,6 @@ PROTOCOL_BUILDERS = {
     "compressed_protocol": compressed_protocol,
     "ethernet_ipv4_udp": ethernet_ipv4_udp,
 }
-
-
-# --------------------------------------------------------------------------
-# MeshSpec (the JAX package keeps it in launch/mesh.py, beside its jax meshes)
-# --------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class MeshSpec:
-    """How to shard the DSE candidate axis across devices.
-
-    ``devices`` is the candidate-axis extent (``--devices N`` on the CLI);
-    ``scenario_axis`` is a second, data-parallel axis campaigns use to spread
-    scenario groups; the total shard count is ``devices * scenario_axis``.
-    Plain data that round-trips through scenario dicts.  Sharding is not
-    ported yet (ROADMAP queue 1: mesh): running a scenario with a mesh
-    raises ``NotImplementedError``.
-    """
-
-    devices: int = 1
-    scenario_axis: int = 1
-
-    def __post_init__(self):
-        if self.devices < 1:
-            raise ValueError(
-                f"MeshSpec candidate axis has size {self.devices}; "
-                f"need >= 1 device")
-        if self.scenario_axis < 1:
-            raise ValueError(
-                f"MeshSpec scenario axis has size {self.scenario_axis}; "
-                f"need >= 1")
-
-    @property
-    def shard_axis(self) -> int:
-        """Total candidate-axis shard count (both mesh axes combined)."""
-        return self.devices * self.scenario_axis
-
-    def is_single(self) -> bool:
-        """True when this spec is the serial single-device path."""
-        return self.shard_axis == 1
-
-    def to_dict(self) -> dict:
-        return {"devices": self.devices, "scenario_axis": self.scenario_axis}
-
-    @classmethod
-    def from_dict(cls, d: dict) -> "MeshSpec":
-        return cls(devices=int(d.get("devices", 1)),
-                   scenario_axis=int(d.get("scenario_axis", 1)))
-
-    @classmethod
-    def coerce(cls, value) -> Optional["MeshSpec"]:
-        """None | int | dict | MeshSpec -> Optional[MeshSpec]."""
-        if value is None or isinstance(value, cls):
-            return value
-        if isinstance(value, int):
-            return cls(devices=value)
-        if isinstance(value, dict):
-            return cls.from_dict(value)
-        raise TypeError(f"cannot build a MeshSpec from {value!r}")
 
 
 # --------------------------------------------------------------------------
@@ -513,7 +456,7 @@ class Scenario:
     co_design: bool = False
     #: optional MeshSpec sharding the batched DSE stages across devices;
     #: None (the default, and what every golden snapshot records) is the
-    #: serial path — the only one ported so far
+    #: serial path; results are bit-identical either way
     mesh: Optional[MeshSpec] = None
     #: optional multi-hop fabric: the scenario evaluates a *network* of
     #: switches (``repro_torch.fabric``) — each topology tier is its own design

@@ -37,9 +37,9 @@ Three content-addressed caches make repeat traffic O(lookup):
   the ``layout_key``-memoized ``bind`` cache, so co-design requests re-use
   every previously compiled ``ParserPlan``.
 
-The engine runs on one device (``device``: the card by default, raising
-without one; ``device="cpu"`` runs the kernels' plain versions); a mesh of
-more than one device is not ported yet (ROADMAP queue 1: mesh).  A request
+The engine runs on ``device`` (the card by default, raising without one;
+``device="cpu"`` runs the kernels' plain versions), every chunk sharded
+over ``mesh`` when one is given (reports stay bit-identical).  A request
 whose spec cannot build fails alone, with its error recorded; a kernel that
 fails to build or launch (``kernels.build.KernelError``) stops the service
 instead of becoming a request error.
@@ -178,25 +178,23 @@ class DSEServeEngine:
     ``batch_width`` / ``verify_width``: the fixed stage-2 / stage-4 chunk
     shapes; partial chunks pad by repeating the last row (row-independent,
     and the kernel engines dedup identical rows, so pad rows are near-free).
-    ``mesh``: a ``MeshSpec``/device count; more than one device is not
-    ported yet and raises.  ``device``: where every chunk runs (default:
-    the first CUDA device).
+    ``mesh``: optional ``MeshSpec``/device count sharding every chunk across
+    a mesh of ``device``'s type — reports stay bit-identical to the serial
+    path.  ``device``: where every chunk runs (default: the first CUDA
+    device).
     """
 
     def __init__(self, *, slots: int = 4, batch_width: int = 64,
                  verify_width: int = 16, mesh=None, device=None):
         if batch_width < 1 or verify_width < 1:
             raise ValueError("batch_width/verify_width must be >= 1")
-        mesh = MeshSpec.coerce(mesh) if mesh is not None else None
-        if mesh is not None and not mesh.is_single():
-            raise NotImplementedError(
-                f"serving over a mesh of {mesh.shard_axis} devices is not "
-                "ported to repro_torch yet (ROADMAP queue 1: mesh); serve on "
-                "one device with mesh=None")
         self.batch_width = batch_width
         self.verify_width = verify_width
-        self.mesh = None
+        mesh = MeshSpec.coerce(mesh) if mesh is not None else None
+        self.mesh = None if mesh is None or mesh.is_single() else mesh
         self.device = resolve_device(device)
+        if self.mesh is not None:
+            self.mesh.build(self.device)    # more shards than devices: raise now
         self._slots: SlotArray[ServeRequest] = SlotArray(slots)
         self._traces: Dict[str, Tuple[Any, Any]] = {}
         self._problems: Dict[str, Any] = {}

@@ -13,8 +13,9 @@ The port's copy of the JAX package's ``comm/dse_comm.py``.  The NumPy parts
 (the analytic formulas, ``np.quantile``, ``np.bincount``) are verbatim;
 the router and the fabric run on the tensors' device (``models/moe.py``,
 the int8 payload through the hand-written quant_pack kernels on the card).
-``mesh`` is None or axis extents of 1: the port runs the fabric on one
-device, and ``model_tp`` sets the tensor extent the analytic model prices.
+``mesh`` is None (one device) or a ``launch.mesh.Mesh`` the verified fabric
+runs over; ``model_tp`` (default: the mesh's tensor extent) sets the tensor
+extent the analytic model prices.
 """
 
 from __future__ import annotations
@@ -31,9 +32,7 @@ from repro_torch.core.dse import (DSEProblem, ResourceBudget, SLA,
 from repro_torch.core.search import DesignSpace, Dim
 from repro_torch.launch.roofline import TPU_V5E
 from repro_torch.models.config import ModelConfig, ShardingPlan
-from repro_torch.models.moe import (MoEOptions, apply_moe,
-                                    check_single_device, router_matmul,
-                                    top_k)
+from repro_torch.models.moe import MoEOptions, apply_moe, router_matmul, top_k
 
 __all__ = ["CommSpec", "CommDSEProblem", "route_trace", "autotune_moe"]
 
@@ -92,10 +91,10 @@ class CommDSEProblem(DSEProblem):
         model_tp: Optional[int] = None,     # tensor extent for the analytic
         hw: Dict = TPU_V5E,                 # model (default: the actual mesh)
     ):
-        check_single_device(mesh)
         self.params, self.cfg, self.plan, self.mesh = params, cfg, plan, mesh
         self.sample_x = sample_x
-        self.tp_size = model_tp or 1
+        self.tp_size = model_tp or (mesh.shape[plan.tp_axis] if mesh is not None
+                                    else 1)
         self.hw = hw
         self.loads = route_trace(params, cfg, sample_x, self.tp_size)
         self.tokens_per_round = int(self.loads.sum(1).mean()) // cfg.moe_topk
@@ -245,8 +244,8 @@ def autotune_moe(params, cfg, plan, mesh, sample_x, *,
                  sla: Optional[SLA] = None, hbm_budget_bytes: float = 4e9,
                  model_tp: Optional[int] = None, verbose: bool = False):
     """One-call fabric auto-tune: routing trace in, Pareto CommSpec out.
-    ``params`` and ``sample_x`` are tensors of one device (where the fabric
-    runs); ``mesh`` is None or axis extents of 1."""
+    ``params`` and ``sample_x`` are tensors of one device; ``mesh`` is None
+    (the fabric runs there) or a ``launch.mesh.Mesh``."""
     problem = CommDSEProblem(params, cfg, plan, mesh, sample_x, model_tp=model_tp)
     sla = sla or SLA(p99_latency_ns=math.inf, drop_rate=2e-2)
     budget = ResourceBudget({"bytes_per_device": hbm_budget_bytes})

@@ -118,7 +118,7 @@ class VerifyResult:
 class DSEProblem:
     """Interface Algorithm 1 runs against (override all methods)."""
 
-    #: optional ``repro.launch.mesh.MeshSpec`` — problems whose batched
+    #: optional ``repro_torch.launch.mesh.MeshSpec`` — problems whose batched
     #: stages can shard the candidate axis read it; results must be
     #: bit-identical to the serial default (None)
     mesh_spec = None
@@ -439,13 +439,14 @@ def run_dse(
     ``resume`` control search-state persistence (``checkpoint_dir`` defaults
     to ``search.checkpoint_dir``).
 
-    ``mesh`` must be None: sharding the batched stages over several CUDA
-    devices is not ported yet (ROADMAP queue 1: mesh).
+    ``mesh`` is an optional ``repro_torch.launch.mesh.MeshSpec`` (or device
+    count) set on ``problem.mesh_spec``: batched stages shard their
+    candidate axis across the device mesh, bit-identical to the serial
+    default.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1: "
-            "mesh); run on one device with mesh=None")
+        from repro_torch.launch.mesh import MeshSpec
+        problem.mesh_spec = MeshSpec.coerce(mesh)
     if search is not None:
         from .search import run_search
         outcome = run_search(problem, search, sla, delta=delta,

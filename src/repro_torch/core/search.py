@@ -501,7 +501,7 @@ class NSGA2Search:
 def save_search_state(ckpt_dir: str, engine: NSGA2Search, mesh=None) -> str:
     """Persist one generation of search state (``step_<generation>``).
 
-    ``mesh`` (an optional ``api.scenario.MeshSpec``) is stamped into the
+    ``mesh`` (an optional ``launch.mesh.MeshSpec``) is stamped into the
     manifest purely as provenance: the state arrays are host-resident and
     mesh-agnostic, so a checkpoint written on N devices restores on M —
     restore never reads the stamp (see :func:`remesh_search_state`)."""
@@ -535,10 +535,9 @@ def remesh_search_state(tree: Mapping[str, np.ndarray],
     Search state lives on the host (pure NumPy) and contains nothing shaped
     by the mesh — population, eval cache, RNG stream and hv history are all
     device-count-independent — so remeshing is the identity on the arrays
-    and only restamps the provenance ``mesh`` entry, for any extent (running
-    on more than one device is another matter: ROADMAP queue 1: mesh).
-    ``remesh(state, N→M→N) == state`` by construction."""
-    from repro_torch.api.scenario import MeshSpec
+    and only restamps the provenance ``mesh`` entry.  ``remesh(state,
+    N→M→N) == state`` by construction."""
+    from repro_torch.launch.mesh import MeshSpec
     mesh = MeshSpec.coerce(mesh)
     extra = {k: v for k, v in extra.items() if k != "mesh"}
     if mesh is not None:

@@ -35,8 +35,8 @@ content, so the fan-out stays batched wherever dynamics coincide.
 
 The port's copy of the JAX package's ``fabric/evaluate.py``: NumPy around
 the batched engines, which run on ``device`` (default: the first CUDA
-device; ``device="cpu"`` takes the kernels' plain versions).  A ``mesh`` is
-not ported and raises, as everywhere in the port.
+device; ``device="cpu"`` takes the kernels' plain versions), each call's
+candidate axis sharded over ``mesh`` when one is given.
 """
 
 from __future__ import annotations
@@ -157,14 +157,6 @@ def _tier_hw(cands_archs, cands_bounds, back_annotation: bool,
             for archs, bounds in zip(cands_archs, cands_bounds)]
 
 
-def _single_device(mesh) -> None:
-    """Refuse a mesh (not ported), as ``SwitchDSEProblem`` does."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported to repro_torch yet (ROADMAP queue 1: "
-            "mesh); evaluate fabrics on one device with mesh=None")
-
-
 def _masked_times(arr_row: np.ndarray, alive_row: np.ndarray) -> np.ndarray:
     """Arrival times with dead packets pushed to a sentinel strictly after
     every live packet (max live time + 1 s), keeping the event count fixed."""
@@ -196,9 +188,9 @@ def evaluate_fabric_batched(
     design for tier t (``n_ports`` == the tier's degree).  Results are
     index-aligned, row-independent (grouping never changes a candidate's
     numbers — each batched engine call is per-candidate exact), and
-    engine-invariant, so serve-path chunking composes unchanged.
-    ``device`` is where the engines run (default: the first CUDA device)."""
-    _single_device(mesh)
+    mesh/engine-invariant, so serve-path chunking and the device mesh compose
+    unchanged.  ``device`` is where the engines run (default: the first CUDA
+    device)."""
     device = resolve_device(device)
     if cfg is None:
         cfg = NetSimConfig()
@@ -258,7 +250,7 @@ def evaluate_fabric_batched(
                     [cands_bounds[b][t] for b in members],
                     sub, hw=[hw[b][t] for b in members], cfg=cfg,
                     back_annotation=back_annotation, i_burst=i_burst,
-                    use_kernel=use_kernel, device=device)
+                    mesh=mesh, use_kernel=use_kernel, device=device)
                 for b, v in zip(members, res):
                     lat_pkt = np.empty(sel.size, np.float64)
                     lat_pkt[perm] = v.meta["latency_full_ns"]
@@ -330,7 +322,6 @@ def surrogate_fabric_batched(
     in ``FabricDSEProblem.size_buffers`` — and throughput is the bottleneck
     tier's.  ``device`` is where the engine runs (default: the first CUDA
     device)."""
-    _single_device(mesh)
     device = resolve_device(device)
     cands_archs = [tuple(a) for a in cands_archs]
     cands_bounds = [tuple(b) for b in cands_bounds]
@@ -366,7 +357,7 @@ def surrogate_fabric_batched(
             [cands_bounds[b][t] for b in range(n_cands)],
             sub, hw=[hw[b][t] for b in range(n_cands)],
             back_annotation=back_annotation, i_burst=i_burst,
-            use_kernel=use_kernel, device=device).results()
+            mesh=mesh, use_kernel=use_kernel, device=device).results()
         occ = np.empty((n_cands, pkt_idx.size))
         for b, sr in enumerate(res):
             lat_trav = np.empty(pkt_idx.size, np.float64)

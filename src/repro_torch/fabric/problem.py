@@ -18,7 +18,7 @@ host anywhere in the network.
 
 The port's copy of the JAX package's ``fabric/problem.py``.  Every tier and
 every fabric evaluation runs on ``device`` (default: the first CUDA
-device); a ``mesh`` raises, as in ``SwitchDSEProblem``.
+device), sharded over ``mesh`` as in ``SwitchDSEProblem``.
 """
 
 from __future__ import annotations
@@ -167,6 +167,7 @@ class FabricDSEProblem(DSEProblem):
         t0 = self.tier_problems[0]
         self.features = t0.features
         self.device = t0.device
+        self.mesh_spec = t0.mesh_spec
         self.back_annotation = back_annotation
         self.headroom = headroom
         self.use_kernel = use_kernel
@@ -246,7 +247,7 @@ class FabricDSEProblem(DSEProblem):
             [self._tier_bounds(c) for c in cands],
             self.trace,
             back_annotation=self.back_annotation,
-            i_burst=self.features.i_burst,
+            i_burst=self.features.i_burst, mesh=self.mesh_spec,
             use_kernel=self.use_kernel, device=self.device)
 
     # ------------------------------------------------------------- stage 3
@@ -294,7 +295,7 @@ class FabricDSEProblem(DSEProblem):
             self.trace,
             cfg=self.cfg,
             back_annotation=self.back_annotation,
-            i_burst=self.features.i_burst,
+            i_burst=self.features.i_burst, mesh=self.mesh_spec,
             use_kernel=self.use_kernel, device=self.device)
 
     # ------------------------------------------------------------- ranking

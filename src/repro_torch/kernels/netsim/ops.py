@@ -36,6 +36,7 @@ is reported unconverged so the caller can fall back to the serial oracle.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.retrace import track
+from repro_torch.launch.mesh import shard_map, shard_pad
 
 from . import kernel
 from .ref import fullness_ok, netsim_replay_abs_ref, netsim_replay_slack_ref
@@ -253,6 +255,27 @@ _gated_replay = track("netsim.kernel.replay", _replay,
                       static_argnames=("n_ports",))
 
 
+@functools.lru_cache(maxsize=None)
+def _sharded_round1(mesh, n_ports):
+    """Round 1 shard by shard: candidate axis split over every mesh axis,
+    timeline and chain structure replicated.  Rowwise — no collectives — so
+    each shard is bitwise the single-device call on its slice."""
+    body = functools.partial(_round1_impl, n_ports=n_ports)
+    name = f"netsim.kernel.round1.sharded[{mesh.label()} n_ports={n_ports}]"
+    return track(name, shard_map(
+        body, mesh, in_axes=(None, None, None, 0, 0, 0, None, None, None),
+        out_axes=(0, 0)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_gated_replay(mesh, n_ports):
+    """The gated replay of later rounds, split as ``_sharded_round1``."""
+    body = functools.partial(_replay, n_ports=n_ports)
+    name = f"netsim.kernel.replay.sharded[{mesh.label()} n_ports={n_ports}]"
+    return track(name, shard_map(body, mesh, in_axes=(None, None, None, 0, 0, 0),
+                                 out_axes=(0,)))
+
+
 def _on(a, dtype, device) -> torch.Tensor:
     """Host array -> a fresh tensor on ``device`` (the timeline memo's
     arrays are read-only and shared, so they are copied, never aliased)."""
@@ -268,11 +291,15 @@ def _pad_rows(a: np.ndarray, size: int) -> np.ndarray:
     return np.concatenate([a, reps], axis=0)
 
 
-def _bucket(b_n: int) -> int:
-    """Row bucket of the subset rounds: the next power of two, as in the
-    JAX package (where it bounds recompiles; here it keeps the launch
-    shapes of a run to O(log B))."""
-    return 1 << max(b_n - 1, 0).bit_length()
+def _bucket(b_n: int, k: int = 1) -> int:
+    """Row bucket of the subset rounds: the next power of two, then up to a
+    multiple of the shard count ``k``, as in the JAX package (where it
+    bounds recompiles; here it keeps the launch shapes of a run to
+    O(log B))."""
+    size = 1 << max(b_n - 1, 0).bit_length()
+    if k > 1:
+        size = -(-size // k) * k
+    return size
 
 
 def netsim_fixed_point(
@@ -286,6 +313,7 @@ def netsim_fixed_point(
     n_ports: int,
     chain: ChainIndex,
     device: torch.device,
+    mesh_spec=None,
     max_rounds: int = 24,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Speculative fixed point: (end [B,m], admit [B,m], converged [B], rounds).
@@ -296,26 +324,38 @@ def netsim_fixed_point(
     stage-3 sizing did its job — are final.  The rest iterate gated replay
     ↔ ``segmented_admission`` (host NumPy) on the row subset only, padded
     to a power-of-two bucket; unconverged rows after ``max_rounds`` are
-    flagged for the caller's serial fallback.  Callers must handle
-    ``depth < 1`` rows themselves (serial semantics drop every packet; no
-    replay needed)."""
+    flagged for the caller's serial fallback.  ``mesh_spec`` (a
+    ``MeshSpec`` of more than one shard) splits every replay's rows over
+    the mesh, bitwise the serial result.  Callers must handle ``depth < 1``
+    rows themselves (serial semantics drop every packet; no replay
+    needed)."""
     b_n, m = svc.shape
     if np.any(depth < 1):
         raise ValueError("netsim_fixed_point requires depth >= 1 rows")
+    k = 1 if mesh_spec is None else mesh_spec.shard_axis
     depth32 = np.minimum(depth, np.int64(2**31 - 1)).astype(np.int32)
 
     now_d = _on(now, np.float64, device)
     src_d = _on(src, np.int32, device)
     dst_d = _on(dst, np.int32, device)
-    svc_d = _on(svc, np.float64, device)
-    pipe_d = _on(pipe, np.float64, device)
-    end_d, ok_d = _round1(
-        now_d, src_d, dst_d, svc_d, pipe_d, _on(depth32, np.int32, device),
-        _on(chain.perm, np.int64, device), _on(chain.seg_start, np.int32, device),
-        _on(chain.rank, np.int32, device), n_ports=n_ports)
-    end = end_d.cpu().numpy()
-    ok = ok_d.cpu().numpy()
-    del svc_d, end_d
+    chain_d = (_on(chain.perm, np.int64, device),
+               _on(chain.seg_start, np.int32, device),
+               _on(chain.rank, np.int32, device))
+    if k > 1:
+        mesh = mesh_spec.build(device)
+        end_d, ok_d = _sharded_round1(mesh, n_ports)(
+            now_d, src_d, dst_d, _on(shard_pad(svc, k), np.float64, device),
+            _on(shard_pad(pipe, k), np.float64, device),
+            _on(shard_pad(depth32, k), np.int32, device), *chain_d)
+    else:
+        end_d, ok_d = _round1(
+            now_d, src_d, dst_d, _on(svc, np.float64, device),
+            _on(pipe, np.float64, device), _on(depth32, np.int32, device),
+            *chain_d, n_ports=n_ports)
+    # strip pad rows (a no-op serially)
+    end = end_d[:b_n].cpu().numpy()
+    ok = ok_d[:b_n].cpu().numpy()
+    del end_d
     admit = np.ones((b_n, m), bool)
     converged = ok.copy()
     if bool(ok.all()):
@@ -329,14 +369,15 @@ def netsim_fixed_point(
                               sub_depth, chain)
     rounds = 1
     conv_sub = np.zeros(rows.size, bool)
+    replay = (functools.partial(_gated_replay, n_ports=n_ports) if k == 1
+              else _sharded_gated_replay(mesh, n_ports))
     while rounds < max_rounds:
         rounds += 1
-        size = _bucket(rows.size)
-        sub_end = _gated_replay(
+        size = _bucket(rows.size, k)
+        sub_end = replay(
             now_d, src_d, dst_d, _on(_pad_rows(sub_svc, size), np.float64, device),
             _on(_pad_rows(sub_pipe, size), np.float64, device),
-            _on(_pad_rows(cur, size), np.bool_, device),
-            n_ports=n_ports)[:rows.size].cpu().numpy()
+            _on(_pad_rows(cur, size), np.bool_, device))[:rows.size].cpu().numpy()
         derived = segmented_admission(sub_end, cur, now, sub_depth, chain)
         eq = (derived == cur).all(axis=1)
         conv_sub = np.asarray(eq)

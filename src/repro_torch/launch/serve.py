@@ -68,7 +68,9 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh != "single":
-        raise NotImplementedError("--mesh multi: the port serves on one device")
+        raise NotImplementedError(
+            "--mesh multi: the production meshes come with training (ROADMAP "
+            "queue 1: training); the port serves on one device")
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``models/config.py``; only
 ``activation_dtype`` differs, naming a ``torch.dtype``.  ``ShardingPlan``
-names mesh axes as in the reference; the port runs on one device, where
-every axis has extent 1 (a larger extent raises where a mesh is passed).
+names mesh axes as in the reference; the MoE layer shards over them when
+given a ``launch.mesh.Mesh``, and the rest of the model runs on one device.
 """
 
 from __future__ import annotations

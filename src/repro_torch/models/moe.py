@@ -17,14 +17,13 @@ implements it with the paper's architecture mapped 1:1:
   drops           tokens past capacity are dropped (combine contributes 0),
                   reported in aux — the packet-loss column of Table II
 
-The port's copy of the JAX package's ``models/moe.py``, as plain functions
-on tensors of one device.  The reference runs the layer inside
-``shard_map`` over the runner's (1, 1) mesh, where every collective (the
-all-to-alls, the all-gathers, ``psum``/``pmean``) is the identity; the port
-runs the same arithmetic without them, and a mesh with an axis above 1
-raises ``NotImplementedError`` (ROADMAP queue 1: mesh).  On one device
-``weights="ff_sharded"`` computes what ``"gathered"`` does, as in the
-reference on its (1, 1) mesh.
+The port's copy of the JAX package's ``models/moe.py``.  The reference
+runs the layer inside ``shard_map`` over the full mesh; the port runs each
+shard of a ``launch.mesh.Mesh`` on its own device, one after another, and
+does each collective between the shards' tensors itself: the all-to-alls
+move blocks between shards, the all-gathers concatenate, and
+``psum``/``pmean`` add in shard order.  With ``mesh=None`` (one device)
+every collective is the identity.
 
 Where the numbers must match the reference's exactly (they decide the
 token-drop rate and expert loads the DSE reports):
@@ -49,17 +48,18 @@ so ``y`` is the same from run to run on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import quant_pack
+from repro_torch.launch.mesh import Mesh
 from .config import ModelConfig, ShardingPlan
 from .layers import dense_init
 
-__all__ = ["MoEOptions", "init_moe", "apply_moe", "top_k", "router_matmul",
-           "check_single_device"]
+__all__ = ["MoEOptions", "init_moe", "apply_moe", "top_k", "router_matmul"]
 
 _U32 = 0xFFFFFFFF
 #: distinct odd multipliers of the hash router's k banks
@@ -82,19 +82,6 @@ class MoEOptions:
     @staticmethod
     def from_config(cfg: ModelConfig) -> "MoEOptions":
         return MoEOptions(capacity_factor=cfg.capacity_factor, router=cfg.router)
-
-
-def check_single_device(mesh: Optional[Mapping[str, int]]) -> None:
-    """``mesh`` is None (one device) or a mapping of axis name to extent;
-    any extent above 1 is the multi-device fabric, not ported yet."""
-    if mesh is None:
-        return
-    big = {ax: n for ax, n in dict(mesh).items() if n > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big}: the multi-device MoE fabric (all-to-all over "
-            "the tensor axis) is not ported to repro_torch yet (ROADMAP queue "
-            "1: mesh); run on one device with mesh=None")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig,
@@ -173,18 +160,96 @@ def _expert_ffn(xin, w1, wg, w2):
     return torch.einsum("mecf,efd->mecd", h, w2)
 
 
-def _wire(x: torch.Tensor, payload: str, dtype: torch.dtype) -> torch.Tensor:
-    """One exchange over the fabric (the identity on one device); the int8
-    payload is quantized before it and dequantized after it."""
+class _Shards:
+    """The shards of a mesh (or of one device, ``mesh=None``) and the
+    collectives between them.  Each collective takes one value per shard
+    (in shard order) and returns one per shard, on that shard's device;
+    reductions add in shard order along the axis, as ``psum``/``pmean``."""
+
+    def __init__(self, mesh, device: torch.device):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a launch.mesh.Mesh or None, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        if mesh is None:
+            self.devices = (device,)
+            self.coords = [{}]
+        else:
+            self.devices = mesh.devices
+            self.coords = [dict(zip(mesh.axis_names, mesh.coords(s)))
+                           for s in range(mesh.size)]
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def extent(self, axis: str) -> int:
+        if self.mesh is None:
+            return 1
+        if axis not in self.mesh.axis_names:
+            raise ValueError(f"plan axis {axis!r} is not an axis of the mesh "
+                             f"{self.mesh.axis_names}")
+        return self.mesh.shape[axis]
+
+    def index(self, s: int, axis: str) -> int:
+        return self.coords[s].get(axis, 0)
+
+    def peers(self, s: int, axis: str):
+        """The shards that differ from shard s only along ``axis``, in
+        order of their index there."""
+        if self.mesh is None:
+            return [s]
+        base = self.coords[s]
+        return [self.mesh.shard([i if a == axis else base[a]
+                                 for a in self.mesh.axis_names])
+                for i in range(self.extent(axis))]
+
+    def all_to_all(self, vals, axis: str):
+        """Shard i's block j (leading dim) becomes shard j's block i."""
+        return [torch.stack([vals[p][self.index(s, axis)].to(self.devices[s])
+                             for p in self.peers(s, axis)])
+                for s in range(len(self))]
+
+    def all_gather(self, vals, axis: str):
+        """Concatenate the shards' values along dim 0, in axis order."""
+        return [torch.cat([vals[p].to(self.devices[s])
+                           for p in self.peers(s, axis)])
+                for s in range(len(self))]
+
+    def psum(self, vals, axis: str):
+        out = []
+        for s in range(len(self)):
+            peers = self.peers(s, axis)
+            acc = vals[peers[0]].to(self.devices[s])
+            for p in peers[1:]:
+                acc = acc + vals[p].to(self.devices[s])
+            out.append(acc)
+        return out
+
+    def pmean(self, vals, axis: str):
+        n = self.extent(axis)
+        return [v / n for v in self.psum(vals, axis)]
+
+
+def _exchange(shards: _Shards, vals, axis: str, payload: str, dtype):
+    """One all-to-all over the fabric's ``axis``; the int8 payload is
+    quantized on the sending shard before it and dequantized on the
+    receiving shard after it (``quant_pack``: the CUDA kernels on a card)."""
     if payload != "int8":
-        return x
-    d = x.shape[-1]
-    q, s = quant_pack.quantize(x.reshape(-1, d))
-    return quant_pack.dequantize(q, s, dtype).reshape(x.shape)
+        return shards.all_to_all(vals, axis)
+    shape = vals[0].shape
+    d = shape[-1]
+    packed = [quant_pack.quantize(v.reshape(-1, d)) for v in vals]
+    q = shards.all_to_all([c.reshape(shape) for c, _ in packed], axis)
+    sc = shards.all_to_all([g.reshape(*shape[:-1], -1) for _, g in packed],
+                           axis)
+    return [quant_pack.dequantize(qi.reshape(-1, d), si.reshape(-1, si.shape[-1]),
+                                  dtype).reshape(shape)
+            for qi, si in zip(q, sc)]
 
 
-def _fabric(xs, params, cfg: ModelConfig, opts: MoEOptions):
-    """Dispatch → exchange → expert FFN → return on one device.  xs [T_m, d]."""
+def _dispatch(xs, params, cfg: ModelConfig, opts: MoEOptions, tp_size: int):
+    """Route and VOQ-pack one shard's tokens xs [T_m, d]: the send buffer
+    [M, E_loc, K, c_sub, d] and what the combine needs."""
     t_m, d = xs.shape
     dev = xs.device
     e, k = cfg.moe_experts, cfg.moe_topk
@@ -200,7 +265,6 @@ def _fabric(xs, params, cfg: ModelConfig, opts: MoEOptions):
     g_flat = gates.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     es = e_flat[order]
-    ts = order // k
     gs = g_flat[order]
     counts = torch.bincount(es, minlength=e)                      # queue occupancy
     starts = torch.cumsum(counts, 0) - counts
@@ -210,63 +274,160 @@ def _fabric(xs, params, cfg: ModelConfig, opts: MoEOptions):
     # one token per kept slot; dropped entries add +0 to slot 0, as in the
     # reference (order-free: x + 0 == x), so the atomics on the card agree
     buf = torch.zeros((e * cap, d), dtype=xs.dtype, device=dev)
-    buf.index_add_(0, slot, torch.where(keep[:, None], xs[ts],
+    buf.index_add_(0, slot, torch.where(keep[:, None], xs[order // k],
                                         torch.zeros((), dtype=xs.dtype,
                                                     device=dev)))
 
-    # ---- fabric exchange + expert compute, possibly in pipelined chunks
     n_chunks = max(1, min(opts.a2a_chunks, cap))
     c_sub = -(-cap // n_chunks)
     pad = n_chunks * c_sub - cap
     buf4 = buf.reshape(e, cap, d)
     if pad:
         buf4 = torch.nn.functional.pad(buf4, (0, 0, 0, pad))
-    buf5 = buf4.reshape(1, e, n_chunks, c_sub, d)                # one tensor shard
+    buf5 = buf4.reshape(tp_size, e // tp_size, n_chunks, c_sub, d)
+    state = dict(t_m=t_m, cap=cap, order=order, gs=gs, keep=keep, slot=slot,
+                 counts=counts, aux=aux)
+    return buf5, state
 
-    w1, wg, w2 = params["w1"], params["wg"], params["w2"]
-    outs = []
-    for ci in range(n_chunks):                                    # pipelined exchanges
-        recv = _wire(buf5[:, :, ci], opts.payload, xs.dtype)      # [M, E_loc, c_sub, d]
-        y = _expert_ffn(recv, w1, wg, w2)
-        outs.append(_wire(y, opts.payload, xs.dtype))
 
+def _combine(outs, st, cfg: ModelConfig, dtype):
+    """Weighted un-dispatch of one shard's returned chunks (dropped tokens
+    contribute 0): y [T_m, d], drop_frac, expert loads."""
+    e, k = cfg.moe_experts, cfg.moe_topk
+    t_m, cap, order = st["t_m"], st["cap"], st["order"]
+    keep, slot, gs = st["keep"], st["slot"], st["gs"]
     y5 = torch.stack(outs, dim=2)                                 # [M, E_loc, K, c_sub, d]
-    y_flat = y5.reshape(e, n_chunks * c_sub, d)[:, :cap].reshape(e * cap, d)
-
-    # ---- VOQ combine: weighted un-dispatch (dropped tokens contribute 0).
-    # The reference scatter-adds in sorted order, one bfloat16 add at a
-    # time; each token's k contributions are added here in that order.
+    d = y5.shape[-1]
+    dev = y5.device
+    y_flat = y5.reshape(e, -1, d)[:, :cap].reshape(e * cap, d)
+    # the reference scatter-adds in sorted order, one bfloat16 add at a
+    # time; each token's k contributions are added here in that order
     vals = y_flat[slot] * (gs * keep)[:, None]
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.shape[0], device=dev)
     seq = torch.sort(rank.reshape(t_m, k), dim=1).values          # [T_m, k]
-    y_tok = torch.zeros((t_m, d), dtype=xs.dtype, device=dev)
+    y_tok = torch.zeros((t_m, d), dtype=dtype, device=dev)
     for j in range(k):
         y_tok = y_tok + vals[seq[:, j]]
 
     n = keep.shape[0]
     inv_n = torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
     drop_frac = 1.0 - keep.sum().to(torch.float32) * inv_n
-    return y_tok, aux, drop_frac, counts.to(torch.int32)
+    return y_tok, drop_frac, st["counts"].to(torch.int32)
 
 
 def apply_moe(
     params: Dict[str, torch.Tensor],
     cfg: ModelConfig,
     plan: ShardingPlan,
-    mesh: Optional[Mapping[str, int]],
+    mesh: Optional[Mesh],
     x: torch.Tensor,                    # [B, S, d]
     opts: Optional[MoEOptions] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The layer on ``x``'s device: (y [B, S, d], {"aux_loss", "drop_frac",
-    "expert_load"}).  ``mesh`` is None or axis extents of 1 (see
-    ``check_single_device``); ``plan`` names the axes, as in the reference."""
-    del plan
-    check_single_device(mesh)
+    """The layer: (y [B, S, d] on ``x``'s device, {"aux_loss", "drop_frac",
+    "expert_load"}).
+
+    ``mesh`` is None (one device: ``x``'s) or a ``launch.mesh.Mesh`` whose
+    axes include the plan's (``compat_make_mesh((2, 4), ("data",
+    "model"))``), as the reference's ``shard_map``: the batch splits over
+    the dp axes, each shard takes a slice of its row's tokens by its
+    ``tp`` index, packs its VOQ buffer at its own capacity, exchanges it
+    with its ``tp`` peers (shard i's block j becomes shard j's block i, on
+    shard j's device; the int8 payload quantized before and dequantized
+    after, on both legs), runs its local experts and returns the results
+    the same way; the outputs are gathered over ``tp`` and the statistics
+    reduced over ``tp`` and dp in shard order.  ``weights="ff_sharded"``
+    splits ``d_ff`` over the first fsdp axis and sums the partial FFNs."""
     opts = opts or MoEOptions.from_config(cfg)
     if opts.weights not in ("gathered", "ff_sharded"):
         raise ValueError(f"unknown MoE weights mode {opts.weights!r}")
-    b, s, d = x.shape
-    y, aux, drops, occ = _fabric(x.reshape(b * s, d), params, cfg, opts)
-    return y.reshape(b, s, d), {"aux_loss": aux, "drop_frac": drops,
-                                "expert_load": occ}
+    shards = _Shards(mesh, x.device)
+    tp, dp = plan.tp_axis, tuple(plan.dp_axes)
+    tp_size = shards.extent(tp)
+    dp_sizes = [shards.extent(a) for a in dp]
+    ff_axis = plan.fsdp_axes[0] if opts.weights == "ff_sharded" else None
+    ff_size = shards.extent(ff_axis) if ff_axis else 1
+    b, s_len, d = x.shape
+    e = cfg.moe_experts
+    n_dp = math.prod(dp_sizes)
+    if b % n_dp or e % tp_size or cfg.d_ff % ff_size:
+        raise ValueError(
+            f"batch {b}, experts {e} and d_ff {cfg.d_ff} must split evenly "
+            f"over the dp axes ({n_dp}), {tp!r} ({tp_size}) and the ff axis "
+            f"({ff_size})")
+    b_loc, e_loc, ff_loc = b // n_dp, e // tp_size, cfg.d_ff // ff_size
+
+    def dp_row(s):
+        r = 0
+        for a, n in zip(dp, dp_sizes):
+            r = r * n + shards.index(s, a)
+        return r
+
+    # ---- each shard's inputs on its device: its batch rows, its experts
+    # (and d_ff slice), the router replicated
+    flat, prm = [], []
+    for s, dev in enumerate(shards.devices):
+        r, j = dp_row(s), shards.index(s, tp)
+        f = shards.index(s, ff_axis) if ff_axis else 0
+        ex, ff = slice(j * e_loc, (j + 1) * e_loc), slice(f * ff_loc, (f + 1) * ff_loc)
+        flat.append(x[r * b_loc:(r + 1) * b_loc].reshape(b_loc * s_len, d).to(dev))
+        prm.append({"router": params["router"].to(dev),
+                    "hash_proj": params["hash_proj"].to(dev),
+                    "w1": params["w1"][ex, :, ff].to(dev),
+                    "wg": params["wg"][ex, :, ff].to(dev),
+                    "w2": params["w2"][ex, ff, :].to(dev)})
+    t_row = flat[0].shape[0]
+    if ff_axis:
+        # expert-TP fabric: gather this row-group's tokens over the ff axis,
+        # compute partial FFNs on every shard, psum the partials, then keep
+        # our slice — zero weight movement
+        flat = shards.all_gather(flat, ff_axis)
+    t_loc = flat[0].shape[0]
+    t_m = -(-t_loc // tp_size)                 # ceil: decode rows < tp_size
+    bufs, states = [], []
+    for s in range(len(shards)):
+        f = flat[s]
+        if t_m * tp_size > t_loc:
+            f = torch.nn.functional.pad(f, (0, 0, 0, t_m * tp_size - t_loc))
+        m = shards.index(s, tp)
+        buf5, st = _dispatch(f[m * t_m:(m + 1) * t_m], prm[s], cfg, opts, tp_size)
+        bufs.append(buf5)
+        states.append(st)
+
+    # ---- fabric exchange + expert compute, possibly in pipelined chunks
+    outs = [[] for _ in range(len(shards))]
+    for ci in range(bufs[0].shape[2]):
+        recv = _exchange(shards, [bf[:, :, ci] for bf in bufs], tp,
+                         opts.payload, x.dtype)               # [M, E_loc, c_sub, d]
+        y = [_expert_ffn(rv, p["w1"], p["wg"], p["w2"]) for rv, p in zip(recv, prm)]
+        if ff_axis:                                           # combine partial FFN sums
+            y = shards.psum(y, ff_axis)
+        y = _exchange(shards, y, tp, opts.payload, x.dtype)
+        for s in range(len(shards)):
+            outs[s].append(y[s])
+
+    y_tok, drops, occ = zip(*(_combine(o, st, cfg, x.dtype)
+                              for o, st in zip(outs, states)))
+    y_all = shards.all_gather(list(y_tok), tp)                 # [T_loc(+pad), d]
+    aux = shards.pmean([st["aux"] for st in states], tp)
+    drops = shards.pmean(list(drops), tp)
+    occ = shards.psum(list(occ), tp)
+    for ax in dp:
+        aux = shards.pmean(aux, ax)
+        drops = shards.pmean(drops, ax)
+        occ = shards.psum(occ, ax)
+    # ---- out: the dp rows in order, each from its shard at index 0 on
+    # every other axis
+    rows = []
+    for r in range(n_dp):
+        s = next(s for s in range(len(shards)) if dp_row(s) == r
+                 and all(shards.index(s, a) == 0 for a in shards.coords[s]
+                         if a not in dp))
+        y = y_all[s][:t_loc]
+        if ff_axis:
+            f = shards.index(s, ff_axis)
+            y = y[f * t_row:(f + 1) * t_row]
+        rows.append(y.reshape(b_loc, s_len, d).to(x.device))
+    y = torch.cat(rows) if len(rows) > 1 else rows[0]
+    return y, {"aux_loss": aux[0].to(x.device), "drop_frac": drops[0].to(x.device),
+               "expert_load": occ[0].to(x.device)}

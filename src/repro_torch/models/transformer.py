@@ -14,7 +14,7 @@ leading L dimension — so that weights carry across one to one; the scan over
 layers is a Python loop over ``params["layers"][...][i]``.  The port runs on
 one device with no autograd, so the reference's sharding constraints and
 activation checkpointing have no counterpart (``plan`` and ``mesh`` name
-axes as in the reference; a mesh axis above 1 raises in the MoE layer).
+axes as in the reference; only the MoE layer runs over a mesh's shards).
 Training (``loss_fn``, ``param_specs``) comes with a later slice.
 """
 

@@ -46,6 +46,7 @@ diverging.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -59,6 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.netsim import netsim_fixed_point, resolve_use_kernel
 from repro_torch.kernels.netsim.ops import _on
 from repro_torch.kernels.ring_scan import ring_scan
+from repro_torch.launch.mesh import MeshSpec, shard_map, shard_pad
 
 from .backannotate import HardwareParams, annotate
 from .netsim import NetSimConfig, run_netsim, service_times
@@ -68,6 +70,21 @@ from .timeline import stage4_timeline
 #: package's name for its ``lax.scan`` engine
 _verify_engine = track("netsim.engine", ring_scan,
                        static_argnames=("n_ports", "d_max"))
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_verify_engine(mesh, n_ports, d_max):
+    """The same admission scan, candidate axis split over the mesh.
+
+    ``svc``/``pipe``/``depth``/``mod`` split along the candidate axis; the
+    event timeline (``now``/``src``/``dst``) is replicated.  Rowwise
+    carries — no collectives — so each shard is bitwise the serial
+    recurrence on its slice; each shard still runs in chunks of rows under
+    ``RING_BUDGET_BYTES``."""
+    body = functools.partial(ring_scan, n_ports=n_ports, d_max=d_max)
+    name = f"netsim.sharded[{mesh.label()} n_ports={n_ports} d_max={d_max}]"
+    return track(name, shard_map(body, mesh, in_axes=(None, None, None, 0, 0, 0, 0),
+                                 out_axes=(0, 0)))
 
 __all__ = ["run_netsim_batched"]
 
@@ -139,7 +156,7 @@ def _metrics_result(end_b, admit_b, order, t0, wire_e, t0_min, cfg, hw,
 
 
 def _run_group(archs, bounds, trace, hw_list, cfg,
-               device) -> List[VerifyResult]:
+               device, mesh_spec=None) -> List[VerifyResult]:
     """The ring-scan engine.  All candidates share n_ports *and* header
     wire-bytes; every other parameter is a batch axis.  The header width is
     structural here — unlike stage 2, the event timeline (host-NIC
@@ -168,14 +185,23 @@ def _run_group(archs, bounds, trace, hw_list, cfg,
     # ring modulus: a queue never holds more than min(depth, m) packets; the
     # ring size rounds up to a power of two, as in the JAX package
     mod = np.minimum(np.maximum(depth, 1), m).astype(np.int32)
+    # d_max comes from the *unpadded* depths (pad rows replicate row 0), so
+    # the ring size — and the scan it keys — is mesh-invariant
     d_max = 1 << int(int(mod.max()) - 1).bit_length()
-    end, admit = _verify_engine(
+    rows = (svc[:, order], pipe, depth.astype(np.int32), mod)
+    k = 1 if mesh_spec is None else mesh_spec.shard_axis
+    if k > 1:
+        engine = _sharded_verify_engine(mesh_spec.build(device), n, d_max)
+        rows = tuple(shard_pad(a, k) for a in rows)
+    else:
+        engine = functools.partial(_verify_engine, n_ports=n, d_max=d_max)
+    end, admit = engine(
         _on(now, np.float64, device), _on(tl4.src_o, np.int32, device),
-        _on(tl4.dst_o, np.int32, device), _on(svc[:, order], np.float64, device),
-        _on(pipe, np.float64, device), _on(depth.astype(np.int32), np.int32, device),
-        _on(mod, np.int32, device), n_ports=n, d_max=d_max)
-    end = end.cpu().numpy()
-    admit = admit.cpu().numpy()
+        _on(tl4.dst_o, np.int32, device), _on(rows[0], np.float64, device),
+        _on(rows[1], np.float64, device), _on(rows[2], np.int32, device),
+        _on(rows[3], np.int32, device))
+    end = end[:b_n].cpu().numpy()             # strip pad rows (no-op serial)
+    admit = admit[:b_n].cpu().numpy()
 
     # one batched sort replaces the per-candidate np.sort the shared-cap
     # check used to run inside the loop below
@@ -208,7 +234,7 @@ def _run_group(archs, bounds, trace, hw_list, cfg,
 
 
 def _run_group_kernel(archs, bounds, trace, hw_list, cfg,
-                      device) -> List[VerifyResult]:
+                      device, mesh_spec=None) -> List[VerifyResult]:
     """The segmented-kernel engine.
 
     Runs the speculative fixed point (``kernels.netsim.netsim_fixed_point``)
@@ -262,7 +288,7 @@ def _run_group_kernel(archs, bounds, trace, hw_list, cfg,
         end, admit, conv, _rounds = netsim_fixed_point(
             now, tl4.src_o.astype(np.int32), tl4.dst_o.astype(np.int32),
             svc_e[ui], pipe[ui], depth[ui], n_ports=n, chain=tl4.chain,
-            device=device)
+            device=device, mesh_spec=mesh_spec)
         sorted_ends = _sorted_admitted_ends(
             end, admit,
             [i for i, b in enumerate(uniq_rows)
@@ -311,6 +337,7 @@ def run_netsim_batched(
     i_burst: float = 1.0,
     use_kernel=False,
     device=None,
+    mesh=None,
 ) -> List[VerifyResult]:
     """Verify a whole sized-candidate batch against one shared trace.
 
@@ -333,10 +360,17 @@ def run_netsim_batched(
     ``device`` (default: the first CUDA device; raises without one) is where
     the engine runs: the hand-written CUDA kernels on a card, their plain
     PyTorch versions for ``device="cpu"``.
+
+    ``mesh`` (an optional ``MeshSpec`` or device count) splits either
+    engine's candidate axis over a mesh of ``device``'s type, bitwise the
+    serial result (one card runs the shards in turn).
     """
     if cfg is None:
         cfg = NetSimConfig()
     device = resolve_device(device)
+    mesh = MeshSpec.coerce(mesh)
+    if mesh is not None and mesh.is_single():
+        mesh = None
     archs = list(archs)
     bounds = (list(bound) if isinstance(bound, (list, tuple))
               else [bound] * len(archs))
@@ -364,11 +398,11 @@ def run_netsim_batched(
     for i, a in enumerate(archs):
         groups.setdefault((a.n_ports, bounds[i].header_bytes), []).append(i)
     if len(groups) == 1:
-        return runner(archs, bounds, trace, hw, cfg, device)
+        return runner(archs, bounds, trace, hw, cfg, device, mesh_spec=mesh)
     out: List[Optional[VerifyResult]] = [None] * len(archs)
     for idx in groups.values():
         part = runner([archs[i] for i in idx], [bounds[i] for i in idx],
-                      trace, [hw[i] for i in idx], cfg, device)
+                      trace, [hw[i] for i in idx], cfg, device, mesh_spec=mesh)
         for i, v in zip(idx, part):
             out[i] = v
     return out

@@ -27,6 +27,7 @@ traces).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -37,6 +38,7 @@ from repro_torch.core.archspec import SwitchArch, VOQKind
 from repro_torch.core.binding import BoundProtocol
 from repro_torch.core.dse import SurrogateResult
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshSpec, shard_map, shard_pad, shard_unpad
 
 from .backannotate import HardwareParams, annotate
 from .timeline import stage2_timeline
@@ -67,6 +69,20 @@ def _engine_impl(dt, src, dst, svc, t, wire_bits, *, n_ports):
 
 
 _engine = track("surrogate.engine", _engine_impl, static_argnames=("n_ports",))
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_engine(mesh, n_ports):
+    """The same scan, candidate axis split over every mesh axis.
+
+    ``svc`` [B, m] and ``wire_bits`` [B] split along B; the timeline
+    (``dt``/``src``/``dst``/``t``) is replicated.  No collectives: rows are
+    independent, so each shard runs the serial recurrence on its slice, on
+    its own device, and the gathered result is bitwise the single call's."""
+    body = functools.partial(_engine_impl, n_ports=n_ports)
+    name = f"surrogate.sharded[{mesh.label()} n_ports={n_ports}]"
+    return track(name, shard_map(body, mesh, in_axes=(None, None, None, 0, None, 0),
+                                 out_axes=(0, 0)))
 
 
 def _exact_occupancy(t, qid, dep):
@@ -168,7 +184,7 @@ class BatchedSurrogateResult:
 
 
 def _run_group(archs, bounds, trace, hw_list, precision, quantiles, device,
-               use_kernel=False):
+               use_kernel=False, mesh_spec=None):
     """All candidates share n_ports; every other parameter — including the
     protocol's header wire-bytes under co-design — is a batch axis.  The
     shared arrival timeline is the trace's (candidate-independent), so mixed
@@ -208,12 +224,21 @@ def _run_group(archs, bounds, trace, hw_list, precision, quantiles, device,
     else:
         def on_device(a, dt_):
             return torch.tensor(a, dtype=dt_, device=device)
-        dep_d, thru_d = _engine(
+        k = 1 if mesh_spec is None else mesh_spec.shard_axis
+        if k > 1:
+            # pad the candidate axis to the mesh extent (throwaway replicas
+            # of row 0, stripped below) and split it over every mesh axis
+            engine = _sharded_engine(mesh_spec.build(device), n)
+            svc_in, wire_in = shard_pad(svc, k), shard_pad(wire_bits, k)
+        else:
+            engine = functools.partial(_engine, n_ports=n)
+            svc_in, wire_in = svc, wire_bits
+        dep_d, thru_d = engine(
             on_device(tl2.dt, dtype), on_device(src, torch.int32),
-            on_device(dst, torch.int32), on_device(svc, dtype),
-            on_device(t, dtype), on_device(wire_bits, dtype), n_ports=n)
-        dep = dep_d.cpu().numpy().astype(np.float64, copy=False)
-        thru = thru_d.cpu().numpy().astype(np.float64, copy=False)
+            on_device(dst, torch.int32), on_device(svc_in, dtype),
+            on_device(t, dtype), on_device(wire_in, dtype))
+        dep = shard_unpad(dep_d.cpu().numpy(), b_n).astype(np.float64, copy=False)
+        thru = shard_unpad(thru_d.cpu().numpy(), b_n).astype(np.float64, copy=False)
         del dep_d, thru_d
     if precision == "float64":
         # the f64 scan returns absolute departure times so the occupancy
@@ -259,12 +284,20 @@ def run_surrogate_batched(
     quantiles: Sequence[float] = DEFAULT_QUANTILES,
     use_kernel=False,
     device=None,
+    mesh=None,
 ) -> BatchedSurrogateResult:
     """Evaluate a whole candidate batch against one shared trace.
 
     ``device`` (default: the first CUDA device; raises without one) is where
     the contention scan runs: the hand-written CUDA kernel on a card, its
     plain PyTorch version for ``device="cpu"``.
+
+    ``mesh`` is an optional ``repro_torch.launch.mesh.MeshSpec`` (or anything
+    its ``coerce`` accepts): when it names more than one shard the candidate
+    axis is padded to the mesh extent and each shard's slice runs on its
+    own device of ``device``'s type (one card runs them in turn) —
+    bit-identical to the serial path, which remains the default
+    (``mesh=None``).
 
     ``bound`` is one ``BoundProtocol`` shared by the batch, or — for the
     protocol/architecture co-design DSE — a per-candidate sequence (index-
@@ -295,6 +328,9 @@ def run_surrogate_batched(
         raise ValueError(f"precision must be 'float64' or 'float32', "
                          f"got {precision!r}")
     device = resolve_device(device)
+    mesh = MeshSpec.coerce(mesh)
+    if mesh is not None and mesh.is_single():
+        mesh = None
     archs = list(archs)
     bounds = (list(bound) if isinstance(bound, (list, tuple))
               else [bound] * len(archs))
@@ -322,11 +358,11 @@ def run_surrogate_batched(
         groups.setdefault(a.n_ports, []).append(i)
     if len(groups) == 1:
         return _run_group(archs, bounds, trace, hw, precision, quantiles,
-                          device, use_kernel=use_kernel)
+                          device, use_kernel=use_kernel, mesh_spec=mesh)
 
     parts = {n: _run_group([archs[i] for i in idx], [bounds[i] for i in idx],
                            trace, [hw[i] for i in idx], precision, quantiles,
-                           device, use_kernel=use_kernel)
+                           device, use_kernel=use_kernel, mesh_spec=mesh)
              for n, idx in groups.items()}
     # stitch [B, m] arrays back in input order (m is shared: one trace)
     first = next(iter(parts.values()))

@@ -174,12 +174,12 @@ def _surrogate_evaluate(arch, bound, trace, *, hw=None, back_annotation=False,
 
 
 def _batched_surrogate_batch(archs, bound, trace, *, hw=None,
-                             back_annotation=False, i_burst=1.0,
+                             back_annotation=False, i_burst=1.0, mesh=None,
                              use_kernel=False, device=None):
     res = run_surrogate_batched(list(archs), bound, trace, hw=hw,
                                 back_annotation=back_annotation,
-                                i_burst=i_burst, use_kernel=use_kernel,
-                                device=device)
+                                i_burst=i_burst, mesh=mesh,
+                                use_kernel=use_kernel, device=device)
     return [_surrogate_to_verify(sr) for sr in res.results()]
 
 
@@ -193,10 +193,10 @@ def _batched_surrogate_evaluate(arch, bound, trace, *, hw=None,
 
 def _batched_surrogate_kernel_batch(archs, bound, trace, *, hw=None,
                                     back_annotation=False, i_burst=1.0,
-                                    device=None):
+                                    mesh=None, device=None):
     return _batched_surrogate_batch(
         archs, bound, trace, hw=hw, back_annotation=back_annotation,
-        i_burst=i_burst, use_kernel=True, device=device)
+        i_burst=i_burst, mesh=mesh, use_kernel=True, device=device)
 
 
 def _batched_surrogate_kernel_evaluate(arch, bound, trace, *, hw=None,
@@ -220,11 +220,11 @@ def _netsim_evaluate(arch, bound, trace, *, hw=None, back_annotation=False,
 
 def _batched_netsim_batch(archs, bound, trace, *, hw=None,
                           back_annotation=False, i_burst=1.0, cfg=None,
-                          use_kernel=False, device=None):
+                          mesh=None, use_kernel=False, device=None):
     return run_netsim_batched(list(archs), bound, trace, hw=hw, cfg=cfg,
                               back_annotation=back_annotation,
-                              i_burst=i_burst, use_kernel=use_kernel,
-                              device=device)
+                              i_burst=i_burst, mesh=mesh,
+                              use_kernel=use_kernel, device=device)
 
 
 def _batched_netsim_evaluate(arch, bound, trace, *, hw=None,
@@ -238,10 +238,10 @@ def _batched_netsim_evaluate(arch, bound, trace, *, hw=None,
 
 def _batched_netsim_kernel_batch(archs, bound, trace, *, hw=None,
                                  back_annotation=False, i_burst=1.0, cfg=None,
-                                 device=None):
+                                 mesh=None, device=None):
     return _batched_netsim_batch(
         archs, bound, trace, hw=hw, back_annotation=back_annotation,
-        i_burst=i_burst, cfg=cfg, use_kernel=True, device=device)
+        i_burst=i_burst, cfg=cfg, mesh=mesh, use_kernel=True, device=device)
 
 
 def _batched_netsim_kernel_evaluate(arch, bound, trace, *, hw=None,

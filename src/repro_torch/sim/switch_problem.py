@@ -36,6 +36,7 @@ from repro_torch.core.dsl import LayoutKey, ProtocolSpace
 from repro_torch.core.features import TraceFeatures, analyze
 from repro_torch.core.search import DesignSpace, Dim
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshSpec
 from .backannotate import annotate
 from .batched_netsim import run_netsim_batched
 from .batched_surrogate import run_surrogate_batched
@@ -142,10 +143,6 @@ class SwitchDSEProblem(DSEProblem):
         if verify_engine not in VERIFY_ENGINES:
             raise ValueError(f"unknown verify_engine {verify_engine!r}; "
                              f"known: {VERIFY_ENGINES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding is not ported to repro_torch yet (ROADMAP "
-                "queue 1: mesh); pass mesh=None")
         if not isinstance(use_kernel, bool) and use_kernel not in USE_KERNEL_MODES:
             raise ValueError(f"unknown use_kernel {use_kernel!r}; "
                              f"known: {USE_KERNEL_MODES} or a bool")
@@ -153,6 +150,10 @@ class SwitchDSEProblem(DSEProblem):
         self.trace = trace
         # where the batched stages run; None means the first CUDA device
         self.device = resolve_device(device)
+        # optional launch.mesh.MeshSpec: shards the stage-2/stage-4 batched
+        # scans across a mesh of that device type (bit-identical to the
+        # serial default)
+        self.mesh_spec = MeshSpec.coerce(mesh)
         self.protocol_space = protocol_space
         self.binding = binding if binding is not None else SemanticBinding()
         self.require_seq = require_seq
@@ -362,7 +363,7 @@ class SwitchDSEProblem(DSEProblem):
             [self._arch(c) for c in cands], self._batch_bound(cands),
             self.trace,
             back_annotation=self.back_annotation,
-            i_burst=self.features.i_burst,
+            i_burst=self.features.i_burst, mesh=self.mesh_spec,
             use_kernel=self.use_kernel, device=self.device).results()
 
     # ------------------------------------------------------------- stage 3
@@ -404,7 +405,7 @@ class SwitchDSEProblem(DSEProblem):
             [self._arch(c) for c in cands], self._batch_bound(cands),
             self.trace,
             back_annotation=self.back_annotation,
-            i_burst=self.features.i_burst,
+            i_burst=self.features.i_burst, mesh=self.mesh_spec,
             use_kernel=self.use_kernel, device=self.device)
 
     def escalate(self, c, v: VerifyResult) -> Optional[VerifyResult]:

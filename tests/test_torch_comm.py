@@ -24,7 +24,9 @@ port's own seeded init cannot give ``jax.random``'s bits):
   candidate's ``expert_load`` and ``drop_frac``; those inputs are the
   reference's own init;
 - ``python -m repro_torch run`` runs comm scenarios (``--device cpu``) and
-  its default device raises without a card; a mesh axis above 1 raises.
+  its default device raises without a card; a mesh axis above the devices
+  available raises, and a forced count runs the fabric over it (the mesh
+  layouts against each other and the reference: ``tests/test_torch_mesh.py``).
 
 ``chip_smoke.py`` holds the card to the same fixtures.  Regenerate them
 after an intentional change to the reference (the reference's runs of the
@@ -305,17 +307,29 @@ def test_int8_payload_goes_through_quant_pack(monkeypatch):
         assert calls == {"q": n, "d": n}
 
 
-def test_mesh_extent_above_one_raises():
+def test_mesh_extent_above_one_raises(monkeypatch):
+    """With one device a mesh extent above 1 raises, naming both counts (a
+    mapping is no mesh); with the count forced the fabric runs over it."""
+    from repro_torch.launch.mesh import compat_make_mesh
     layer = _layer()
-    with pytest.raises(NotImplementedError, match="queue 1: mesh"):
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
+        compat_make_mesh((1, 2), ("data", "model"), "cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN,
                   {"data": 1, "model": 2}, layer.x)
-    with pytest.raises(NotImplementedError, match="queue 1: mesh"):
-        CommDSEProblem(layer.params, layer.cfg, SINGLE_POD_PLAN,
-                       {"data": 4, "model": 1}, layer.x)
-    y, _ = apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN,
-                     {"data": 1, "model": 1}, layer.x)
+    y1, aux1 = apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN,
+                         compat_make_mesh((1, 1), ("data", "model"), "cpu"), layer.x)
+    y0, aux0 = apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN, None, layer.x)
+    assert torch.equal(y1, y0) and torch.equal(aux1["expert_load"], aux0["expert_load"])
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "4")
+    mesh = compat_make_mesh((2, 2), ("data", "model"), "cpu")
+    y, aux = apply_moe(layer.params, layer.cfg, SINGLE_POD_PLAN, mesh, layer.x,
+                       MoEOptions(capacity_factor=8.0))
     assert y.shape == layer.x.shape
+    assert int(aux["expert_load"].sum()) == layer.x.shape[0] * layer.x.shape[1] * 2
+    prob = CommDSEProblem(layer.params, layer.cfg, SINGLE_POD_PLAN, mesh, layer.x)
+    assert prob.tp_size == 2
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,8 @@ candidate lists, bound layouts, trace arrays from every generator, resource
 reports, trace features and the serial stage-2/stage-4 oracles are equal,
 floats bitwise.  The port imports neither ``jax`` nor ``repro``, runs on
 the card unless told otherwise, and refuses what it has not ported yet
-(mesh sharding).
+(the token server's production meshes, which come with training); the
+paths it once refused (the mesh among them) run.
 """
 
 import jax
@@ -213,7 +214,7 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_paths_raise_not_implemented(tmp_path):
+def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
     bound = convert.from_reference(
         bind(compressed_protocol(addr_bits=4, length_bits=12), flit_bits=256))
     tr = convert.from_reference(hft(seed=0).head(64))
@@ -221,12 +222,26 @@ def test_unported_paths_raise_not_implemented(tmp_path):
     for engine in ("cycle", "auto"):        # rung 4 is ported: no refusal
         assert psim.SwitchDSEProblem(req, bound, tr, verify_engine=engine,
                                      device="cpu").verify_engine == engine
-    with pytest.raises(NotImplementedError, match="mesh"):
-        psim.SwitchDSEProblem(req, bound, tr, mesh=2, device="cpu")
+    # the mesh is ported (tests/test_torch_mesh.py): a sharded problem and
+    # run_dse over 2 shards give the serial result
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    from repro_torch.launch.mesh import MeshSpec
+    assert psim.SwitchDSEProblem(req, bound, tr, mesh=2,
+                                 device="cpu").mesh_spec == MeshSpec(devices=2)
     prob = psim.SwitchDSEProblem(req, bound, tr, back_annotation=False,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pcore.run_dse(prob, pcore.SLA(), pcore.ResourceBudget({}), mesh=2)
+    serial = pcore.run_dse(prob, pcore.SLA(), pcore.ResourceBudget({}))
+    prob2 = psim.SwitchDSEProblem(req, bound, tr, back_annotation=False,
+                                  device="cpu")
+    sharded = pcore.run_dse(prob2, pcore.SLA(), pcore.ResourceBudget({}), mesh=2)
+    assert prob2.mesh_spec == MeshSpec(devices=2)
+    assert ([(c.short(), v.p99_latency_ns, v.drop_rate) for c, v in sharded.pareto]
+            == [(c.short(), v.p99_latency_ns, v.drop_rate) for c, v in serial.pareto])
+    # the token server's production meshes come with training: still refused
+    from repro_torch.launch import serve as launch_serve
+    with pytest.raises(NotImplementedError, match="training"):
+        launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--mesh", "multi",
+                           "--device", "cpu"])
     # the ring-scan engine and fabrics are ported (tests/test_torch_ring_scan.py,
     # tests/test_torch_fabric.py): no refusal
     [v] = psim.run_netsim_batched(pcore.enumerate_candidates(req)[:1], bound,
@@ -237,8 +252,11 @@ def test_unported_paths_raise_not_implemented(tmp_path):
     from repro_torch.fabric import FabricDSEProblem
     problem, _, _ = build_problem(port_registry["fattree_dc"], device="cpu")
     assert isinstance(problem, FabricDSEProblem)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_scenario(port_registry["hft"].override(devices=2), device="cpu")
+    small = port_registry["hft"].override(back_annotation=False,
+                                          trace_params={"duration_s": 8e-5})
+    from repro_torch.api import strip_times
+    assert (strip_times(run_scenario(small, mesh=2, device="cpu").to_dict())
+            == strip_times(run_scenario(small, device="cpu").to_dict()))
     # search checkpoints are ported (tests/test_torch_checkpoint.py): the
     # three state functions run instead of refusing
     space = psearch.DesignSpace((psearch.Dim("a", (1, 2)),))

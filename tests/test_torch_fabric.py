@@ -324,15 +324,26 @@ def test_fabric_report_carries_multi_hop_metrics():
     assert len(fab["per_tier_drops"]) == 2
 
 
-def test_fabric_mesh_above_one_device_raises():
+def test_fabric_mesh_above_one_device_raises(monkeypatch):
+    """With one device a fabric mesh of 2 raises, naming both counts; with
+    two (forced) it evaluates, equal to the serial result."""
     topo = TOPOLOGIES["ring1"][0]
     tr = convert.from_reference(uniform(seed=0, n_ports=8).head(32))
-    a = convert.from_reference(_nxn_candidates(8)[0])
-    with pytest.raises(NotImplementedError, match="queue 1: mesh"):
-        evaluate_fabric_batched(topo, [(a,)], [(BOUND,)], tr, mesh=2,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _fabric_problem(BOUND, mesh=2)
+    cands = [(convert.from_reference(a),) for a in _nxn_candidates(8)[:3]]
+    bounds = [(BOUND,)] * len(cands)
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
+        evaluate_fabric_batched(topo, cands, bounds, tr, mesh=2, device="cpu")
+    problem = _fabric_problem(BOUND, mesh=2)
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
+        problem.verify_batch(problem.candidates()[:2])
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    serial = evaluate_fabric_batched(topo, cands, bounds, tr, device="cpu")
+    sharded = evaluate_fabric_batched(topo, cands, bounds, tr, mesh=2,
+                                      device="cpu")
+    for g, w in zip(sharded, serial):
+        assert (g.drop_rate, g.p99_latency_ns) == (w.drop_rate, w.p99_latency_ns)
+        np.testing.assert_array_equal(g.meta["latency_ns"], w.meta["latency_ns"])
 
 
 # --------------------------------------------------------------------------

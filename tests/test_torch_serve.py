@@ -7,9 +7,10 @@ Contract: a served report equals the port's ``run_scenario`` on the same
 across the packages), however requests interleave, chunk, pad or dedup;
 repeats are answered from the report cache and in-flight twins are computed
 once; ``request_key`` is the reference's; a bad spec fails its own request
-only, a kernel fault stops the service; a mesh of more than one device
-raises; the chunks launch at fixed widths (the retrace guard adds no call
-key on a second wave).
+only, a kernel fault stops the service; a mesh larger than the devices
+available is refused up front, and a forced count serves the same reports
+(the goldens on a mesh: ``tests/test_torch_mesh.py``); the chunks launch
+at fixed widths (the retrace guard adds no call key on a second wave).
 """
 
 import jax
@@ -161,7 +162,7 @@ def test_serve_kernel_fault_is_not_a_request_error(tiny_hft, monkeypatch):
     assert eng.counters["errors"] == 0
 
 
-def test_serve_cli_smoke(tmp_path, capsys):
+def test_serve_cli_smoke(tmp_path, capsys, monkeypatch):
     from repro_torch.api.cli import main
     out = tmp_path / "served.json"
     reqs = tmp_path / "reqs.json"
@@ -180,14 +181,30 @@ def test_serve_cli_smoke(tmp_path, capsys):
     assert payload["stats"]["report_hits"] == 1
     a, b = payload["requests"]
     assert strip_times(a["report"]) == strip_times(b["report"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # --devices 2: with one device a usage error naming both counts; with
+    # two (forced) the same reports
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
+    with pytest.raises(SystemExit, match="needs 2 devices but only 1"):
         main(["serve", "hft", "--devices", "2", "--device", "cpu"])
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    out2 = tmp_path / "served2.json"
+    assert main(["serve", "--requests", str(reqs), "--slots", "2",
+                 "--batch-width", "16", "--verify-width", "4", "--device", "cpu",
+                 "--devices", "2", "--out", str(out2)]) == 0
+    sharded = json.loads(out2.read_text())["requests"]
+    assert [strip_times(r["report"]) for r in sharded] == [
+        strip_times(r["report"]) for r in payload["requests"]]
 
 
-def test_serve_mesh_and_device_refusals():
-    with pytest.raises(NotImplementedError, match="queue 1: mesh"):
+def test_serve_mesh_and_device_refusals(monkeypatch):
+    # a mesh larger than the devices available is refused up front, naming
+    # both counts; a forced count lets it through
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
         DSEServeEngine(mesh=2, device="cpu")
     assert DSEServeEngine(mesh=1, device="cpu").mesh is None
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    assert DSEServeEngine(mesh=2, device="cpu").mesh.shard_axis == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DSEServeEngine()            # the card by default, raising without
