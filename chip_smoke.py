@@ -43,7 +43,15 @@ final ``{"ok": true, ...}`` line:
            the bfloat16 bar over seeds 0-31 at the D 128 and llama forms,
            every pair inside it; the SSD kernel at mamba2-780m's prefill
            and a ragged length (atol = rtol = 2e-3; y and the final state);
-           ms per call for both, and the bound; the ring-scan stage-4
+           ms per call for both, and the bound; the two gradient kernels
+           against autograd of their plain versions on the card
+           (FLASH_BWD_FORMS: float32 and bfloat16, D 64 and 128, causal and
+           hymba's window of 1,024, GQA 32/8, llama3.2-1b's training shape
+           [1, 32/8, 8192, 64] and ragged lengths, a mask one key off
+           outside the bar, SDPA's backward timed beside the causal ones;
+           SSD_BWD_FORMS: mamba2-780m's [48, 8192, 64, 128] and a ragged
+           length, float32 and bfloat16 x/B/C), each with ms per call,
+           kernel alone and its bound; the ring-scan stage-4
            kernel (end and admit bitwise) at hft's and datacenter's shapes,
            64 ports (the k=8 fat-tree's edge tier flattened) and 300, at
            depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
@@ -54,7 +62,7 @@ final ``{"ok": true, ...}`` line:
            a CUDA graph of one call, for xbar, netsim, the parser, switch_loop (with
            its chain bound: its cycles times the least dependent step one
            cycle hands the next, measured) and the ring scan.
-  path     seven main paths, each with every kernel's launch counter set to 0
+  path     eight main paths, each with every kernel's launch counter set to 0
            just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2,
            hft_codesign and fattree_dc with the settings their golden
@@ -126,6 +134,19 @@ final ``{"ok": true, ...}`` line:
            meshes (1,1), (2,4), (4,2) and (8,1) in bf16 and int8, each
            within 3e-2 of (1,1), quantize and dequantize launching on
            int8; at capacity 1.0 on (2,4) the drop fraction and loads.
+           (h) training at full width on the port's seeded init:
+           llama3.2-1b (16 layers; attention through the kernels at S
+           8,192) and mamba2-780m (48 layers), bf16, remat="block", AdamW
+           lr 3e-4 with a warmup of 2, one SyntheticLM sequence of 8,192
+           tokens a step, 6 steps each: every loss finite and the last
+           below the first, every parameter's step-0 gradient finite and
+           non-zero somewhere, flash_attention_bwd 16 and ssd_scan_bwd 48
+           launches a step (the forward kernels 32 and 96: remat's
+           recompute); step wall, tokens/s, the kernels' share (CUDA
+           events), peak memory; then one AdamW step at 2 layers, full
+           width, 1 x 1,024 tokens in float32 against the JAX package's
+           in tests/torch_golden/train_{llama,mamba} (loss, gradient
+           norms, gradient and updated-parameter slices).
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
@@ -544,6 +565,8 @@ def phase_kernels(dev, stats):
     ok &= kernels_flash_cross(dev, stats)
     ok &= kernels_flash_seeds(dev, stats)
     ok &= kernels_ssd(dev, stats)
+    ok &= kernels_flash_bwd(dev, stats)
+    ok &= kernels_ssd_bwd(dev, stats)
     ok &= kernels_ring_scan(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
@@ -1327,6 +1350,220 @@ def kernels_ssd(dev, stats):
     return ok
 
 
+#: the attention gradient's forms: (form, shape name, B, Hq, Hkv, S, D,
+#: window, dtype): llama3.2-1b's training shape (one sequence of 8,192, GQA
+#: 32/8, D 64), hymba-1.5b's heads with its window of 1,024, D 128, and
+#: lengths no 64-row tile divides, in float32 and bfloat16
+FLASH_BWD_FORMS = (("bf16_causal", "llama_train", 1, 32, 8, 8192, 64, 0, "bf16"),
+                   ("f32_causal", "gqa_ragged", 1, 32, 8, 1000, 64, 0, "f32"),
+                   ("bf16_causal_ragged", "gqa_ragged", 1, 32, 8, 1000, 64, 0, "bf16"),
+                   ("f32_window", "gqa_window", 1, 8, 2, 2100, 128, 1024, "f32"),
+                   ("bf16_window", "hymba_window", 1, 25, 5, 4096, 64, 1024, "bf16"),
+                   ("bf16_d128", "gqa_d128", 1, 32, 8, 1000, 128, 0, "bf16"))
+#: the gradient bars: |got - want| <= atol * max|want| + rtol * |want|, per
+#: tensor (dq, dk, dv), against autograd of the plain version on the same
+#: inputs.  float32: the kernel's sums run in another order (1e-4 of the
+#: tensor's largest entry).  bfloat16: each gradient is rounded to bfloat16
+#: once (2**-8 relative) and the plain version rounds P before P.V where the
+#: kernel does not (~2**-9 relative a term), so rtol 2**-7 and 1e-2 of the
+#: largest entry; the plain version run in float32 on the same inputs is
+#: held at 2e-2 of the largest entry
+FLASH_BWD_TOL = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 2 ** -7)}
+
+
+def _grad_share(got, want, atol_frac, rtol):
+    """The largest share of the bar |got - want| <= atol_frac·max|want| +
+    rtol·|want| (passes at <= 1) over the tensors of ``got``/``want``."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        atol = atol_frac * float(w.abs().max())
+        worst = max(worst, float(((g - w).abs() / (atol + rtol * w.abs() + 1e-30)).max()))
+    return worst
+
+
+def _attn_plain_grads(q, k, v, do, window, block_k):
+    """Autograd of the plain version (ref.blockwise_ref) on the card, one KV
+    head's group of query heads at a time (the gradient is separable over KV
+    heads, and the whole call's saved tiles would not fit): (dq, dk, dv)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import blockwise_ref
+    hq, hkv = q.shape[1], k.shape[1]
+    rep = hq // hkv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for g in range(hkv):
+        qs = q[:, g * rep:(g + 1) * rep].detach().clone().requires_grad_(True)
+        ks = k[:, g:g + 1].detach().clone().requires_grad_(True)
+        vs = v[:, g:g + 1].detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            o = blockwise_ref(qs, ks, vs, causal=True, window=window, block_k=block_k)
+            gq, gk, gv = torch.autograd.grad(o, (qs, ks, vs), do[:, g * rep:(g + 1) * rep])
+        dq[:, g * rep:(g + 1) * rep], dk[:, g:g + 1], dv[:, g:g + 1] = gq, gk, gv
+        del o, qs, ks, vs
+    return dq, dk, dv
+
+
+def kernels_flash_bwd(dev, stats):
+    """The attention gradient kernel against autograd of its plain version
+    on the card, per FLASH_BWD_FORMS at FLASH_BWD_TOL (bfloat16 also against
+    the plain version in float32 within 2e-2 of the largest entry, and
+    against the gradient of a mask one key off, which must fall outside
+    the bar); ms per call, kernel alone, the bound (the gradient's least
+    work, 2.5x the forward's at the same causal shape, at the dtype's peak),
+    the plain version's wall and SDPA's backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    ok = True
+    for form, shape, b, hq, hkv, s, d, window, dt in FLASH_BWD_FORMS:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q, k, v = _attn_inputs(b, hq, hkv, s, d, dev, dtype, seed=s + hq + 1)
+        do = torch.randn(q.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(s)).to(dtype)
+        o = fk.flash_attention(q, k, v, causal=True, window=window)
+        kern = lambda: fk.flash_attention_bwd(q, k, v, o, do, causal=True,  # noqa: E731
+                                              window=window)
+        n0 = fk.BWD_LAUNCHES
+        got = kern()
+        torch.cuda.synchronize()
+        assert fk.BWD_LAUNCHES == n0 + 1, "flash_attention_bwd did not launch"
+        block_k = fk.KEY_TILE if dt == "bf16" else 1024
+        plain = lambda: _attn_plain_grads(q, k, v, do, window, block_k)  # noqa: E731
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        atol_frac, rtol = FLASH_BWD_TOL[dt]
+        rec = {"kernel": "flash_attention_bwd", "form": form, "shape": shape, "B": b,
+               "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "max_abs_grad": max(float(w.float().abs().max()) for w in want),
+               "bar_share": _grad_share(got, want, atol_frac, rtol),
+               "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+        good = rec["finite"] and rec["bar_share"] <= 1.0
+        if dt == "bf16":
+            f32 = _attn_plain_grads(q.float(), k.float(), v.float(), do.float(), window,
+                                    1024)
+            rec["share_vs_f32"] = _grad_share(got, f32, 2e-2, 0.0)
+            good &= rec["share_vs_f32"] <= 1.0
+            del f32
+        # dq with the causal edge (and window) one key off, on the first KV
+        # head's query heads: row r sees keys r - window .. r - 1
+        rep = hq // hkv
+        off = _attn_plain_grads(q[:, :rep, 1:], k[:, :1, :-1], v[:, :1, :-1],
+                                do[:, :rep, 1:], window, block_k)
+        late = s // 2
+        caught = _grad_share([got[0][:, :rep, 1 + late:]],
+                             [off[0][:, :, late:]], atol_frac, rtol) > 1.0
+        rec["one_key_off_caught"] = bool(caught)
+        good &= rec["one_key_off_caught"]
+        del off
+        item = q.element_size()
+        _, fwd_flops = _attn_work(b, hq, hkv, s, d, window, item)
+        moved = (3 * 2 * b * hq * s * d + 2 * 2 * b * hkv * s * d) * item
+        bound, by = _bound(moved, 2.5 * fwd_flops, item)
+        rec.update({"within_tolerance": good, "ms": cuda_ms(kern, reps=3),
+                    "kernel_ms": launch_ms(kern, reps=3), "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "flop": 2.5 * fwd_flops,
+                    "library_ms": None})
+        if not window:
+            qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            with torch.enable_grad():
+                out = _sdpa(F, qg, kg, vg)
+            rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), reps=3)
+            del out, qg, kg, vg
+        stats["forms"].append(rec)
+        say("kernels", **rec)
+        ok &= good
+        del q, k, v, do, o, got, want
+        torch.cuda.empty_cache()
+    return ok
+
+
+#: the SSD gradient's forms: (form, shape name, heads per sequence, BH, S,
+#: P, N, chunk of the plain version, x dtype, B/C dtype): mamba2-780m's
+#: training shape (one sequence of 8,192, 48 heads) and a length no 64
+#: divides, in float32 and with x, B and C in bfloat16 as the bf16 model
+#: gives them
+SSD_BWD_FORMS = (("x_bf16_bc_bf16", "mamba_train", 48, 48, 8192, 64, 128, 128, "bf16", "bf16"),
+                 ("x_f32", "mamba_train", 48, 48, 8192, 64, 128, 128, "f32", "f32"),
+                 ("x_f32", "mamba_ragged", 48, 48, 1000, 64, 128, 200, "f32", "f32"),
+                 ("x_bf16_bc_bf16", "mamba_ragged", 48, 96, 1000, 64, 128, 200, "bf16",
+                  "bf16"),
+                 ("x_f32_bc_bf16", "mamba_ragged", 48, 48, 1000, 64, 128, 200, "f32",
+                  "bf16"))
+#: the SSD gradient bars (per tensor, as FLASH_BWD_TOL), against autograd of
+#: the plain version in float32 on the same inputs: 2e-3 (the forward's
+#: bar) in float32; bfloat16 outputs rounded once, 2**-7 and 1e-2
+SSD_BWD_TOL = {"f32": (2e-3, 2e-3), "bf16": (1e-2, 2 ** -7)}
+
+
+def kernels_ssd_bwd(dev, stats):
+    """The SSD gradient kernel against autograd of its plain version on the
+    card (float32, on the same inputs), per SSD_BWD_FORMS at SSD_BWD_TOL:
+    dx, d(dt), da, dB, dC; ms per call, kernel alone, the bytes bound."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    ok = True
+    for form, shape, heads, bh, s, p, n, chunk, xt, bct in SSD_BWD_FORMS:
+        x, dt, a, b, c = _ssd_inputs(bh, heads, s, p, n, dev, seed=s + 7)
+        xd = torch.float32 if xt == "f32" else torch.bfloat16
+        bd = torch.float32 if bct == "f32" else torch.bfloat16
+        x, b, c = x.to(xd), b.to(bd), c.to(bd)
+        dy = (torch.randn((bh, s, p), device=dev,
+                          generator=torch.Generator(dev).manual_seed(s)) * 0.1).to(xd)
+        kern = lambda: sk.ssd_scan_bwd(x, dt, a, b, c, dy)  # noqa: E731
+        n0 = sk.BWD_LAUNCHES
+        got = kern()
+        torch.cuda.synchronize()
+        assert sk.BWD_LAUNCHES == n0 + 1, "ssd_scan_bwd did not launch"
+
+        def plain():
+            leaves = [t.detach().float().clone().requires_grad_(True)
+                      for t in (x, dt, a, b, c)]
+            xx, dd, aa, bb, cc = leaves
+            with torch.enable_grad():
+                y = ssd_chunked_ref(xx, dd, aa, torch.repeat_interleave(bb, heads, 0),
+                                    torch.repeat_interleave(cc, heads, 0), chunk=chunk)
+                return torch.autograd.grad(y, leaves, dy.float())
+
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        tol = SSD_BWD_TOL["bf16" if "bf16" in form else "f32"]
+        names = ("dx", "ddt", "da", "db", "dc")
+        shares = {nm: _grad_share([g], [w], *tol) for nm, g, w in zip(names, got, want)}
+        rec = {"kernel": "ssd_scan_bwd", "form": form, "shape": shape, "BH": bh, "S": s,
+               "P": p, "N": n, "shares": shares, "bar_share": max(shares.values()),
+               "max_abs_err": max(float((g.float() - w).abs().max())
+                                  for g, w in zip(got, want)),
+               "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+        good = rec["finite"] and rec["bar_share"] <= 1.0
+        xi, bi = x.element_size(), b.element_size()
+        g_rows = bh // heads
+        # x, dy read and dx written in x's dtype; dt read and ddt written,
+        # a read and da written in float32; B, C read and dB, dC written
+        moved = 3 * bh * s * p * xi + 2 * bh * s * 4 + 2 * bh * 4 + 4 * g_rows * s * n * bi
+        flops = 2 * bh * _ssd_head_flops(s, p, n)
+        bound, by = _bound(moved, flops, 2)
+        rec.update({"within_tolerance": good, "ms": cuda_ms(kern, reps=3),
+                    "kernel_ms": launch_ms(kern, reps=3), "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None,
+                    "scratch_mb": sk.bwd_scratch_floats(bh, s, p, n) * 4 / 2 ** 20})
+        stats["forms"].append(rec)
+        say("kernels", **rec)
+        ok &= good
+        del x, dt, a, b, c, dy, got, want
+        torch.cuda.empty_cache()
+    return ok
+
+
 #: the ring-scan engine's shapes, name -> (n_ports, m, rows of the mixed
 #: batch): hft's (8 ports, 3,707 events), datacenter's (32 ports, 530), the
 #: k=8 fat-tree's edge tier flattened (64 ports) and 300 ports (the tail in
@@ -1479,7 +1716,9 @@ def _counters():
             "dequantize": (qk, "DEQUANTIZE_LAUNCHES"),
             "flash_attention": (fk, "LAUNCHES"),
             "flash_attention_wgmma": (fk, "LAUNCHES_WGMMA"),
-            "ssd_scan": (sk, "LAUNCHES")}
+            "flash_attention_bwd": (fk, "BWD_LAUNCHES"),
+            "ssd_scan": (sk, "LAUNCHES"),
+            "ssd_scan_bwd": (sk, "BWD_LAUNCHES")}
 
 
 def _reset_counters():
@@ -1496,7 +1735,7 @@ def phase_path(dev, stats):
     failures = (path_golden(dev, stats) + path_switch(dev, stats)
                 + path_comm(dev, stats) + path_serving(dev, stats)
                 + path_served(dev, stats) + path_resume(dev, stats)
-                + path_mesh(dev, stats))
+                + path_mesh(dev, stats) + path_train(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -2344,6 +2583,199 @@ def _model_fixture(stem, arch, dev, stats):
     return failures
 
 
+#: path (h): arch -> its layers (all), trained at full width on one
+#: sequence of TRAIN_SEQ tokens for TRAIN_STEPS steps
+TRAIN_ARCHS = {"llama3.2-1b": 16, "mamba2-780m": 48}
+TRAIN_SEQ, TRAIN_STEPS = 8192, 6
+#: the reference's full-width train steps (tests/torch_golden/train_*):
+#: file stem -> arch
+TRAIN_FIXTURES = {"train_llama": "llama3.2-1b", "train_mamba": "mamba2-780m"}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def path_train(dev, stats):
+    """(h) training at full width on the port's seeded init: llama3.2-1b (16
+    layers, attention through the kernels at S 8,192) and mamba2-780m (48
+    layers), bf16, remat="block", AdamW lr 3e-4 with a warmup of 2, one
+    SyntheticLM sequence of 8,192 tokens a step, TRAIN_STEPS steps; every
+    loss finite and the last below the first, every parameter's gradient
+    in step 0 finite and non-zero somewhere, flash_attention_bwd launched
+    once per attention layer and ssd_scan_bwd once per SSM layer each step
+    (the forward kernels twice: the forward and remat's recompute); then
+    the 2-layer fixtures against the reference's train step."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.models import SINGLE_POD_PLAN as PLAN
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainSpec, adamw, make_train_step
+    from repro_torch.train.train_step import batch_to, value_and_grad
+
+    failures = []
+    t_path = time.perf_counter()
+    log = []
+    undo = _kernel_timer(log, {"flash_attention": fk, "flash_attention_bwd": fk,
+                               "ssd_scan": sk, "ssd_scan_bwd": sk})
+    totals = {}
+    try:
+        for arch, layers in TRAIN_ARCHS.items():
+            cfg = get_config(arch)
+            assert cfg.remat == "block" and cfg.n_layers == layers
+            t0 = time.perf_counter()
+            params = convert.model_params(convert.seeded_model_arrays(cfg, 0), dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1,
+                                          frontend=cfg.frontend, d_model=cfg.d_model,
+                                          mrope=cfg.mrope))
+            # step 0's gradients, every leaf
+            (loss0, _), grads = value_and_grad(
+                lambda p, b: T.loss_fn(p, cfg, PLAN, None, b))(params, batch_to(data.batch(0), dev))
+            bad = [k for k, g in _flat_tree(grads).items()
+                   if not (bool(torch.isfinite(g.float()).all()) and bool((g != 0).any()))]
+            rec = {"train": f"{arch} step-0 gradients", "leaves": len(_flat_tree(grads)),
+                   "zero_or_nonfinite": bad, "loss": float(loss0), "ok": not bad}
+            stats["train"].append(rec)
+            say("path", **rec)
+            if bad:
+                failures.append(f"{arch} gradients {bad}")
+            del grads
+            opt = adamw(lr=3e-4)
+            step = make_train_step(cfg, PLAN, None, opt,
+                                   TrainSpec(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS))
+            state = opt.init(params)
+            want = ({"flash_attention_bwd": layers, "flash_attention": 2 * layers}
+                    if cfg.has_attention else {"ssd_scan_bwd": layers, "ssd_scan": 2 * layers})
+            losses = []
+            for i in range(TRAIN_STEPS):
+                batch = data.batch(i)
+                before, n_log = _read_counters(), len(log)
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch, i)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = _read_counters()
+                launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                for k, v in launches.items():
+                    totals[k] = totals.get(k, 0) + v
+                kms = _kernel_ms(log, n_log)
+                ok = (math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))
+                      and all(launches.get(k) == v for k, v in want.items()))
+                losses.append(loss)
+                rec = {"train": arch, "step": i, "layers": layers, "B": 1, "S": TRAIN_SEQ,
+                       "loss": loss, "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                       "wall_s": wall, "tokens_per_s": TRAIN_SEQ / wall, "launches": launches,
+                       "kernel_ms": kms, "kernel_share": sum(kms.values()) / (wall * 1e3),
+                       "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                       "init_s": init_s, "ok": ok}
+                stats["train"].append(rec)
+                say("path", **rec)
+                if not ok:
+                    failures.append(f"{arch} train step {i}")
+            if not losses[-1] < losses[0]:
+                failures.append(f"{arch} loss did not fall: {losses}")
+            del params, state
+            torch.cuda.empty_cache()
+        for stem, arch in TRAIN_FIXTURES.items():
+            failures += _train_fixture(stem, arch, dev, stats)
+    finally:
+        undo()
+    stats["launches"].update({k: totals.get(k, 0) for k in ("flash_attention_bwd",
+                                                             "ssd_scan_bwd")})
+    say("path", path="train", launches=totals, seconds=time.perf_counter() - t_path)
+    return failures
+
+
+def _fixture_slice(a):
+    """tests/test_torch_train.py's ``_slice``: the first 32 x 32 of the last
+    two dims (of layer 0 for stacked leaves)."""
+    a = a[0] if a.dim() == 3 else a
+    return a[..., :32, :32] if a.dim() >= 2 else a[:32]
+
+
+def _train_fixture(stem, arch, dev, stats):
+    """The card's fixture step (2 layers at full width, float32 activations,
+    blockwise attention, one AdamW step from the NumPy seed) against the
+    reference's, at the bars the fixture records (tests/test_torch_train.py
+    compare_fixture_step)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import SINGLE_POD_PLAN as PLAN
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainSpec, adamw, make_train_step
+    from repro_torch.train.train_step import batch_to, value_and_grad
+
+    meta, arrays = _comm_fixture(stem)
+    tol = meta["tolerance"]
+    cfg = dataclasses.replace(get_config(arch), n_layers=meta["n_layers"],
+                              attn_impl=meta["attn_impl"], dtype=meta["dtype"])
+    weights = convert.seeded_model_arrays(cfg, meta["seed"])
+    if "layers.ssm.dt_bias" in weights:
+        weights["layers.ssm.dt_bias"] = np.full_like(weights["layers.ssm.dt_bias"],
+                                                     meta["dt_bias"])
+    params = convert.model_params(weights, dev)
+    # the fixture's SyntheticLM batch as stored (Generator.zipf, under its
+    # unigram table, draws other numbers in other NumPy versions)
+    batch = batch_to({k: arrays[f"batch/{k}"] for k in ("tokens", "labels")}, dev)
+    regen = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=meta["seq"], global_batch=1,
+                                   seed=meta["seed"])).batch(0)
+    (loss, _), grads = value_and_grad(lambda p, b: T.loss_fn(p, cfg, PLAN, None, b))(
+        params, batch)
+    step = make_train_step(cfg, PLAN, None, adamw(lr=meta["lr"]), TrainSpec(**meta["spec"]))
+    opt = adamw(lr=meta["lr"])
+    new, _, m = step(params, opt.init(params), batch, meta["step"])
+    gf, pf, nf = _flat_tree(grads), _flat_tree(params), _flat_tree(new)
+    norms = {k: float(torch.linalg.vector_norm(v.double())) for k, v in gf.items()}
+    want_norms = meta["leaf_norms"]
+    rec = {"train": f"{stem} fixture", "layers": meta["n_layers"], "S": meta["seq"],
+           "loss": float(loss), "loss_rel": abs(float(loss) - meta["loss"]) / abs(meta["loss"]),
+           "grad_norm_rel": abs(float(m["grad_norm"]) - meta["grad_norm"]) / meta["grad_norm"],
+           "leaf_norm_rel": max(abs(norms[k] - v) / v if v else abs(norms[k])
+                                for k, v in want_norms.items()),
+           "same_leaves": sorted(norms) == sorted(want_norms),
+           # whether this machine's NumPy draws the stored batch again
+           "batch_regenerated_equal": all(np.array_equal(regen[k], arrays[f"batch/{k}"])
+                                          for k in ("tokens", "labels")),
+           "numpy": np.__version__}
+    share, flips, moved = 0.0, 0.0, 1.0
+    for k in meta["slices"]:
+        g = _fixture_slice(gf[k]).float().cpu().numpy()
+        w = arrays[f"grads/{k}"]
+        share = max(share, float(np.abs(g - w).max() / (tol["grad_slice_tol"] * np.abs(w).max())))
+        up = _fixture_slice(nf[k]).float().cpu().numpy()
+        flips = max(flips, float(np.mean(np.abs(up - arrays[f"updated/{k}"]) > meta["lr"])))
+        moved = min(moved, float(np.mean(up != _fixture_slice(pf[k]).float().cpu().numpy())))
+    rec.update({"grad_slice_share": share, "param_flip_share": flips,
+                "params_moved_share": moved})
+    rec["ok"] = (rec["loss_rel"] <= tol["loss_rtol"] and rec["grad_norm_rel"] <= tol["norm_rtol"]
+                 and rec["leaf_norm_rel"] <= tol["norm_rtol"] and share <= 1.0
+                 and flips <= tol["param_flip_share"] and rec["same_leaves"])
+    stats["train"].append(rec)
+    say("path", **rec)
+    del params, grads, new
+    torch.cuda.empty_cache()
+    return [] if rec["ok"] else [f"{stem} fixture"]
+
+
 def _timed(problem, name, log):
     """Wrap one batched hook of ``problem`` to record its wall time and
     what it returned (for the serial spot checks)."""
@@ -3043,6 +3475,19 @@ KERNELS = {
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd.cu",
                  "replaces": "src/repro/kernels/ssd/kernel.py:65",
                  "main": ("x_bf16_bc_bf16", "mamba_prefill")},
+    # the training path's attention gradient (path (h): llama3.2-1b's
+    # 8,192 tokens, one call per layer a step); the reference takes it by
+    # autodiff of its XLA twin (no Pallas kernel)
+    "flash_attention_bwd": {"source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "replaces": "src/repro/models/attention.py:128 (autodiff of "
+                                        "blockwise_attention; no Pallas kernel)",
+                            "main": ("bf16_causal", "llama_train")},
+    # the training path's SSD gradient (path (h): mamba2-780m's 8,192
+    # tokens, x, B and C in bfloat16, one call per layer a step)
+    "ssd_scan_bwd": {"source": "src/repro_torch/csrc/ssd_bwd.cu",
+                     "replaces": "src/repro/kernels/ssd/ops.py:21 (autodiff of "
+                                 "ssd_chunked; no Pallas kernel)",
+                     "main": ("x_bf16_bc_bf16", "mamba_train")},
     # stage 4 with use_kernel="off" (the goldens' off runs): hft's shape, a
     # batch of mixed sized depths; the reference runs it as a lax.scan (no
     # Pallas counterpart)
@@ -3119,7 +3564,7 @@ def main(argv=None) -> int:
     say("build", **build)
 
     stats = {"forms": [], "flash_seeds": [], "scale": [], "switch": [], "comm": [],
-             "serving": [], "launches": {}}
+             "serving": [], "train": [], "launches": {}}
     failed = []
     for name, fn in (("kernels", phase_kernels), ("path", phase_path),
                      ("scale", phase_scale), ("profile", phase_profile)):

@@ -28,6 +28,8 @@ the same arrays, so parity at full width needs no stored weights.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -37,7 +39,7 @@ from repro_torch.core import archspec, binding, dse, dsl, search
 from repro_torch.traces.base import Trace
 
 __all__ = ["from_reference", "moe_tensors", "comm_problem", "run_comm_scenario",
-           "seeded_model_arrays", "model_params"]
+           "seeded_model_arrays", "model_params", "opt_state"]
 
 _ENUMS = {cls.__name__: cls for cls in (archspec.ForwardTableKind,
                                          archspec.VOQKind,
@@ -194,6 +196,7 @@ def seeded_model_arrays(cfg, seed: int) -> Dict[str, np.ndarray]:
     block of 2**23 elements is drawn from ``default_rng([seed, leaf,
     block])``, so the arrays depend on the shapes and the seed only."""
     out: Dict[str, np.ndarray] = {}
+    jobs = []
     for leaf, (name, shape, kind, scale) in enumerate(_leaves(cfg)):
         if kind in ("ones", "zeros"):
             out[name] = (np.ones if kind == "ones" else np.zeros)(shape, np.float32)
@@ -201,9 +204,19 @@ def seeded_model_arrays(cfg, seed: int) -> Dict[str, np.ndarray]:
         size = int(np.prod(shape))
         flat = np.empty(size, np.uint16 if kind == "bf16" else np.float32)
         for part, lo in enumerate(range(0, size, _DRAW_ELEMS)):
-            n = min(_DRAW_ELEMS, size - lo)
-            flat[lo:lo + n] = _draw(seed, leaf, part, n, scale, kind == "bf16")
+            jobs.append((flat, leaf, part, lo, min(_DRAW_ELEMS, size - lo), scale,
+                         kind == "bf16"))
         out[name] = flat.reshape(shape)
+
+    def fill(job):
+        flat, leaf, part, lo, n, scale, bf16 = job
+        flat[lo:lo + n] = _draw(seed, leaf, part, n, scale, bf16)
+
+    # each block has its own seed, so the blocks are drawn in any order:
+    # in threads (NumPy's generators release the GIL while they fill)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for done in pool.map(fill, jobs):
+            del done
     return out
 
 
@@ -222,3 +235,21 @@ def model_params(arrays: Mapping[str, np.ndarray], device=None) -> Dict[str, Any
             node = node.setdefault(p, {})
         node[leaf] = _tensor(a, dev)
     return tree
+
+
+def opt_state(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """An optimizer state as nested dicts of NumPy arrays (the reference's
+    AdamW ``{"mu", "nu", "count"}`` or Adafactor ``{"v", "count"}``, read
+    with ``np.asarray`` leaf by leaf) -> the same tree of tensors on
+    ``device`` (default: the first CUDA device), dtypes kept (uint16 and
+    NumPy bfloat16 arrays as bfloat16, ``count`` an int32 scalar), so that
+    both packages can start from one state."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor(np.asarray(x), dev)
+    return conv(tree)
+

@@ -29,15 +29,15 @@ from typing import Dict, Sequence
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "MAX_SMEM_BYTES", "KernelError",
-           "library", "build_all", "capturing", "check_launch", "check_ports",
-           "check_tensor"]
+           "library", "build_all", "capturing", "check_launch", "check_no_grad",
+           "check_ports", "check_tensor"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 #: build directory at the checkout root (``src/repro_torch`` -> ``.``)
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES = ("xbar", "netsim", "islip", "parser", "quant_pack", "flash_attention",
-           "ssd", "switch_loop", "ring_scan")
+           "ssd", "switch_loop", "ring_scan", "flash_attention_bwd", "ssd_bwd")
 #: dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,6 +136,20 @@ def check_tensor(x: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record ``what`` on a tensor that needs a
+    gradient: a kernel writes its outputs through raw pointers, so they carry
+    no history, and a gradient through them would go missing without an
+    error.  The model path's kernels are called inside their
+    ``torch.autograd.Function`` (whose forward runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires a gradient and grad mode is on; the "
+            "kernel's output would carry none. Call the op (kernels.<name>.ops), "
+            "which launches it inside its autograd Function, or run under "
+            "torch.no_grad()")
 
 
 def capturing(x: torch.Tensor) -> bool:

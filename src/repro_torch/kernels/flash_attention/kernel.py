@@ -19,6 +19,17 @@ summation order, with P rounded at the path's key tiles.  Each input must
 start on a 16-byte boundary.  ``LAUNCHES`` counts the launches of this
 process, ``LAUNCHES_WGMMA`` those that the library reports it launched on
 the ``wgmma`` path.
+
+``flash_attention_bwd(q, k, v, o, do, causal=, window=)`` launches the
+gradient kernel (``csrc/flash_attention_bwd.cu``, which replaces no Pallas
+kernel: the reference takes this gradient by autodiff of
+``blockwise_attention``) for the same forms with S = T, giving (dq, dk,
+dv) in q's dtype, equal to autograd of ``ref.blockwise_ref`` up to float32
+summation order (and, in bfloat16, the rounding of P before P.V, which
+that autograd passes straight through).  ``BWD_LAUNCHES`` counts its calls
+(three launches each: the pre-pass, dK/dV, dQ).  Both bindings raise when
+grad mode is on and an input requires a gradient: ``ops.FlashAttentionFn``
+is the differentiable op.
 """
 
 from __future__ import annotations
@@ -27,16 +38,18 @@ import ctypes
 
 import torch
 
-from ..build import check_launch, check_tensor, library
+from ..build import check_launch, check_no_grad, check_tensor, library
 
-__all__ = ["LAUNCHES", "LAUNCHES_WGMMA", "HEAD_DIMS", "KEY_TILE", "flash_attention",
-           "plan", "wgmma_smem"]
+__all__ = ["LAUNCHES", "LAUNCHES_WGMMA", "BWD_LAUNCHES", "HEAD_DIMS", "KEY_TILE",
+           "flash_attention", "flash_attention_bwd", "plan", "wgmma_smem"]
 
 #: kernel launches since the counter was last reset (``chip_smoke.py`` sets
 #: it to 0 before the main path and reads it after), and those of them on
 #: the ``wgmma`` path, as the library's entry reports it
 LAUNCHES = 0
 LAUNCHES_WGMMA = 0
+#: calls of the gradient kernel (three launches each)
+BWD_LAUNCHES = 0
 HEAD_DIMS = (32, 64, 128)
 #: keys per tile of the bfloat16 ``wgmma`` path: P is rounded to bfloat16
 #: against the running max at these tiles, so the plain version
@@ -97,6 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Launch the kernel on ``q``'s CUDA device."""
     global LAUNCHES, LAUNCHES_WGMMA
+    check_no_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"q is on {q.device}: the attention kernel takes CUDA "
                          "tensors (the plain version is ref.blockwise_ref)")
@@ -132,3 +146,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LAUNCHES += 1
     LAUNCHES_WGMMA += wgmma.value
     return o
+
+
+def _lib_bwd():
+    lib = library("flash_attention_bwd")
+    if not getattr(lib, "_spac_typed", False):
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, "flash_attention_bwd_" + sfx)
+            fn.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+            fn.restype = ctypes.c_int
+        lib._spac_typed = True
+    return lib
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """Launch the gradient kernel on ``q``'s CUDA device: (dq, dk, dv) of
+    ``flash_attention(q, k, v)`` = ``o`` for the incoming gradient ``do``."""
+    global BWD_LAUNCHES
+    check_no_grad("flash_attention_bwd", q, k, v, o, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"q is on {q.device}: the attention gradient kernel takes "
+                         "CUDA tensors (the plain version is autograd of "
+                         "ref.blockwise_ref)")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be [B, Hq, S, D] and k/v [B, Hkv, T, D]")
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if q.dtype not in _SUFFIX:
+        raise ValueError(f"q has dtype {q.dtype}; the kernel takes float32 or bfloat16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{hq} query heads are not a multiple of {hkv} KV heads")
+    if s != t:
+        raise ValueError(f"S = {s} and T = {t}: the gradient kernel takes S = T")
+    for name, x, shape in (("q", q, (b, hq, s, d)), ("k", k, (b, hkv, t, d)),
+                           ("v", v, (b, hkv, t, d)), ("o", o, (b, hq, s, d)),
+                           ("do", do, (b, hq, s, d))):
+        check_tensor(x, name, q.dtype, shape, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    scratch = torch.empty((2, b * hq * s), dtype=torch.float32, device=q.device)
+    fn = getattr(_lib_bwd(), "flash_attention_bwd_" + _SUFFIX[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, hq,
+                  hkv, s, t, d, 1.0 / (d ** 0.5), int(causal), int(window), stream)
+    check_launch(code, "flash_attention_bwd")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

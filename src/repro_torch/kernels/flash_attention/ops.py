@@ -1,8 +1,11 @@
 """Public attention op over [B, H, S, D] with GQA.
 
 Device policy: CUDA tensors launch the hand-written kernel
-(``kernel.flash_attention``), CPU tensors take its plain PyTorch version
-(``ref.blockwise_ref``); there is no fallback from one to the other.
+(``kernel.flash_attention``) through ``FlashAttentionFn``, whose backward
+launches the hand-written gradient kernel (``kernel.flash_attention_bwd``);
+CPU tensors take the plain PyTorch version (``ref.blockwise_ref``), which
+autograd differentiates as it is.  There is no fallback from one to the
+other.
 ``attention_reference`` is the port of the JAX package's oracle op (heads
 repeated, exact softmax).
 """
@@ -14,7 +17,27 @@ import torch
 from . import kernel
 from .ref import attention_ref, blockwise_ref
 
-__all__ = ["flash_attention", "attention_reference"]
+__all__ = ["FlashAttentionFn", "flash_attention", "attention_reference"]
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention on the card with its gradient: the forward kernel, and the
+    gradient kernel from the saved q, k, v and output (no log-sum-exp is
+    kept: the gradient kernel recomputes it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o = kernel.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, do.to(q.dtype).contiguous(),
+                                                causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -25,8 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return blockwise_ref(q, k, v, causal=causal, window=window,
                              block_q=block_q, block_k=block_k)
-    return kernel.flash_attention(_aligned(q), _aligned(k), _aligned(v),
-                                  causal=causal, window=window)
+    return FlashAttentionFn.apply(_aligned(q), _aligned(k), _aligned(v), causal, window)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..build import check_launch, check_tensor, library
+from ..build import check_launch, check_no_grad, check_tensor, library
 from .ref import GROUP
 
 __all__ = ["QUANTIZE_LAUNCHES", "DEQUANTIZE_LAUNCHES", "quantize",
@@ -66,6 +66,7 @@ def _check_2d(x: torch.Tensor, name: str) -> tuple:
 def quantize(x: torch.Tensor):
     """Launch the quantize kernel on ``x``'s CUDA device."""
     global QUANTIZE_LAUNCHES
+    check_no_grad("quantize", x)
     r, c = _check_2d(x, "x")
     if x.dtype not in _SUFFIX:
         raise ValueError(f"x has dtype {x.dtype}; the kernel takes float32 or "
@@ -89,6 +90,7 @@ def dequantize(q: torch.Tensor, s: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch the dequantize kernel on ``q``'s CUDA device."""
     global DEQUANTIZE_LAUNCHES
+    check_no_grad("dequantize", q, s)
     r, c = _check_2d(q, "q")
     if out_dtype not in _SUFFIX:
         raise ValueError(f"out_dtype {out_dtype}: the kernel writes float32 or "

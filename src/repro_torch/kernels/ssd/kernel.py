@@ -22,6 +22,17 @@ B and C in bfloat16 are exact in one bf16 pass, so they are read as they
 come.  A call is three launches on its stream: ``ssd_split_bc`` (B and C
 as bf16 planes), ``ssd_chunk_vec`` (each chunk's scan of dt a) and the scan
 ``ssd_wgmma``.  ``LAUNCHES`` counts calls, one for each such triple.
+
+``ssd_scan_bwd(x, dt, a, b, c, dy)`` launches the gradient kernel
+(``csrc/ssd_bwd.cu``, which replaces no Pallas kernel: the reference takes
+this gradient by autodiff of ``ssd_chunked``) for the same forms, giving
+(dx, ddt, da, db, dc) in the dtypes of x, dt, a, b and c, with db and dc
+summed over each group's heads, equal to autograd of
+``ref.ssd_chunked_ref`` up to float32 rounding.  A call is three launches
+(``ssd_bwd_states``, ``ssd_bwd_chunk``, ``ssd_bwd_reduce``);
+``BWD_LAUNCHES`` counts calls.  Both bindings raise when grad mode is on
+and an input requires a gradient: ``ops.SSDScanFn`` is the differentiable
+op.
 """
 
 from __future__ import annotations
@@ -30,15 +41,17 @@ import ctypes
 
 import torch
 
-from ..build import check_launch, check_tensor, library
+from ..build import check_launch, check_no_grad, check_tensor, library
 
-__all__ = ["LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "CHUNK", "P_SPLIT", "ssd_scan",
-           "plan", "wgmma_smem"]
+__all__ = ["LAUNCHES", "BWD_LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "CHUNK", "P_SPLIT",
+           "ssd_scan", "ssd_scan_bwd", "bwd_scratch_floats", "plan", "wgmma_smem"]
 
 #: calls that launched the kernels (three launches each) since the counter
 #: was last reset (``chip_smoke.py`` sets it to 0 before the main path and
 #: reads it after)
 LAUNCHES = 0
+#: calls of the gradient kernel (three launches each)
+BWD_LAUNCHES = 0
 HEAD_DIMS = (32, 64, 128)
 STATE_DIMS = (16, 32, 64, 128)
 #: steps per chunk: one 64-row wgmma tile
@@ -100,6 +113,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, return_state: bool = False):
     """Launch the kernel on ``x``'s CUDA device."""
     global LAUNCHES
+    check_no_grad("ssd_scan", x, dt, a, b, c)
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}: the SSD kernel takes CUDA tensors "
                          "(the plain version is ref.ssd_chunked_ref)")
@@ -143,3 +157,70 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         check_launch(code, "ssd_scan")
         LAUNCHES += 1
     return (y, state) if return_state else y
+
+
+def _lib_bwd():
+    lib = library("ssd_bwd")
+    if not getattr(lib, "_spac_typed", False):
+        for tx in _SUFFIX.values():
+            for tb in _SUFFIX.values():
+                fn = getattr(lib, f"ssd_scan_bwd_{tx}_{tb}")
+                fn.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+                fn.restype = ctypes.c_int
+        lib._spac_typed = True
+    return lib
+
+
+def bwd_scratch_floats(bh: int, s: int, p: int, n: int) -> int:
+    """float32 scratch of one gradient call: the chunk-start states and the
+    reverse carries [BH, NC, P, N] (NC = ceil(S / CHUNK)), per-head dB and
+    dC [BH, S, N], and da's per-chunk parts [BH, NC]."""
+    nc = -(-s // CHUNK)
+    return 2 * bh * nc * p * n + 2 * bh * s * n + bh * nc
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, dy: torch.Tensor):
+    """Launch the gradient kernel on ``x``'s CUDA device: (dx, ddt, da, db,
+    dc) of ``ssd_scan(x, dt, a, b, c)`` for the incoming gradient ``dy``."""
+    global BWD_LAUNCHES
+    check_no_grad("ssd_scan_bwd", x, dt, a, b, c, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}: the SSD gradient kernel takes CUDA "
+                         "tensors (the plain version is autograd of "
+                         "ref.ssd_chunked_ref)")
+    if x.dim() != 3 or b.dim() != 3:
+        raise ValueError("x must be [BH, S, P] and b/c [G, S, N]")
+    bh, s, p = x.shape
+    g, n = b.shape[0], b.shape[-1]
+    if x.dtype not in _SUFFIX or b.dtype not in _SUFFIX:
+        raise ValueError(f"x has dtype {x.dtype} and b {b.dtype}; the kernel takes "
+                         "float32 or bfloat16")
+    if p not in HEAD_DIMS or n not in STATE_DIMS:
+        raise ValueError(f"P={p}, N={n}: the kernel takes P in {HEAD_DIMS} and "
+                         f"N in {STATE_DIMS}")
+    if g < 1 or bh % g:
+        raise ValueError(f"{g} rows of B/C do not divide {bh} heads")
+    dev = x.device
+    check_tensor(x, "x", x.dtype, (bh, s, p), dev)
+    check_tensor(dy, "dy", x.dtype, (bh, s, p), dev)
+    check_tensor(dt, "dt", torch.float32, (bh, s), dev)
+    check_tensor(a, "a", torch.float32, (bh,), dev)
+    check_tensor(b, "b", b.dtype, (g, s, n), dev)
+    check_tensor(c, "c", b.dtype, (g, s, n), dev)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    da = torch.zeros_like(a)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    if x.numel() == 0:
+        return dx, ddt, da, db.zero_(), dc.zero_()
+    scratch = torch.empty(bwd_scratch_floats(bh, s, p, n), dtype=torch.float32, device=dev)
+    fn = getattr(_lib_bwd(), f"ssd_scan_bwd_{_SUFFIX[x.dtype]}_{_SUFFIX[b.dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(x.data_ptr(), dy.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                  c.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+                  db.data_ptr(), dc.data_ptr(), scratch.data_ptr(), bh, s, p, n, bh // g,
+                  stream)
+    check_launch(code, "ssd_scan_bwd")
+    BWD_LAUNCHES += 1
+    return dx, ddt, da, db, dc

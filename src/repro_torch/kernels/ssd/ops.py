@@ -1,9 +1,13 @@
 """Public SSD ops: the chunked scan and the one-token decode step.
 
 Device policy for ``ssd_chunked``: CUDA tensors launch the hand-written
-kernel (``kernel.ssd_scan``, which picks its own chunk), CPU tensors take
-the plain version (``ref.ssd_chunked_ref`` at ``chunk``); there is no
-fallback from one to the other.  B and C go to the kernel in their own
+kernel (``kernel.ssd_scan``, which picks its own chunk) through
+``SSDScanFn``, whose backward launches the hand-written gradient kernel
+(``kernel.ssd_scan_bwd``); a call that asks for the final state (the
+prefill's) launches the forward kernel alone, and raises where a gradient
+would be needed.  CPU tensors take the plain version
+(``ref.ssd_chunked_ref`` at ``chunk``), which autograd differentiates as it
+is.  There is no fallback from one to the other.  B and C go to the kernel in their own
 dtype where both are float32 or both bfloat16 (the bf16 model's are bf16,
 exact in one bf16 pass), else as float32.
 
@@ -21,7 +25,23 @@ import torch
 from . import kernel
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_chunked", "ssd_decode_step"]
+__all__ = ["SSDScanFn", "ssd_chunked", "ssd_decode_step"]
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan on the card with its gradient (no final state): the
+    forward kernel, and the gradient kernel from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        y = kernel.ssd_scan(x, dt, a, b, c)
+        ctx.save_for_backward(x, dt, a, b, c)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a, b, c = ctx.saved_tensors
+        return kernel.ssd_scan_bwd(x, dt, a, b, c, dy.to(x.dtype).contiguous())
 
 
 def _per_head(t: torch.Tensor, bh: int) -> torch.Tensor:
@@ -44,8 +64,11 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, return_state: bool = False)
     x = x.contiguous()
     if x.data_ptr() % 16:                   # TMA reads x from a 16-byte boundary
         x = x.clone()
-    return kernel.ssd_scan(x, dt.to(f32).contiguous(), a.to(f32).contiguous(),
-                           b.contiguous(), c.contiguous(), return_state=return_state)
+    dt, a, b, c = (dt.to(f32).contiguous(), a.to(f32).contiguous(), b.contiguous(),
+                   c.contiguous())
+    if return_state:
+        return kernel.ssd_scan(x, dt, a, b, c, return_state=True)
+    return SSDScanFn.apply(x, dt, a, b, c)
 
 
 def ssd_decode_step(state, x_t, dt_t, a, b_t, c_t):

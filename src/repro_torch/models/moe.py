@@ -137,7 +137,7 @@ def _route_hash(xs, hash_proj, topk, e):
     """MultiBankHash routing: k independent sign-LSH banks; conflicts appear
     as load imbalance -> capacity overflow (the paper's bank-conflict cost).
     The reference's uint32 arithmetic, in int64 masked to 32 bits."""
-    proj = router_matmul(xs.to(torch.float32), hash_proj)
+    proj = router_matmul(xs.to(torch.float32), hash_proj).detach()   # stop_gradient
     bits = (proj > 0).to(torch.int64)
     weights = torch.arange(1, bits.shape[-1] + 1, dtype=torch.int64,
                            device=xs.device)

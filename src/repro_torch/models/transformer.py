@@ -11,11 +11,17 @@ config's family:
 
 Parameters keep the reference's layout — every layer weight stacked on a
 leading L dimension — so that weights carry across one to one; the scan over
-layers is a Python loop over ``params["layers"][...][i]``.  The port runs on
-one device with no autograd, so the reference's sharding constraints and
-activation checkpointing have no counterpart (``plan`` and ``mesh`` name
-axes as in the reference; only the MoE layer runs over a mesh's shards).
-Training (``loss_fn``, ``param_specs``) comes with a later slice.
+layers is a Python loop over ``params["layers"][...][i]`` (indexing keeps
+each layer's gradient flowing to the stacked leaf).  The reference's
+sharding constraints have no counterpart: the port keeps parameters whole
+on one device (``plan`` and ``mesh`` name axes as in the reference; only the
+MoE layer runs over a mesh's shards), and ``param_specs`` gives the
+reference's spec tree as plain tuples.  ``loss_fn`` is the training loss;
+autograd differentiates it, through the kernels' autograd Functions on the
+card.  ``remat="block"`` (the configs' default) recomputes each layer's
+block in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+the counterpart of the reference's ``jax.checkpoint``; under ``no_grad``
+(serving) it does nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
@@ -32,8 +39,8 @@ from .config import ModelConfig, ShardingPlan
 from .layers import (apply_mlp, init_embedding, init_mlp, init_norm, init_unembed,
                      matmul, rms_norm)
 
-__all__ = ["init_params", "forward", "init_decode_state", "decode_state_structs",
-           "prefill", "decode_step", "ModelBundle"]
+__all__ = ["init_params", "param_specs", "forward", "loss_fn", "init_decode_state",
+           "decode_state_structs", "prefill", "decode_step", "ModelBundle"]
 
 
 # --------------------------------------------------------------------- init
@@ -78,6 +85,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     params["layers"] = _stack([_init_block(gen, cfg, plan)
                                for _ in range(cfg.n_layers)])
     return params
+
+
+def _fsdp(plan: ShardingPlan):
+    if not plan.fsdp_weights:
+        return None
+    axes = tuple(plan.fsdp_axes)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _block_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
+    fs, tp = _fsdp(plan), plan.tp
+    specs: Dict[str, Any] = {"ln1": (None,)}
+    if cfg.has_attention:
+        specs["attn"] = {"wq": (fs, tp), "wk": (fs, tp), "wv": (fs, tp), "wo": (tp, fs)}
+    if cfg.has_ssm:
+        specs["ssm"] = {"wz": (fs, tp), "wx": (fs, tp), "wb": (fs, None), "wc": (fs, None),
+                        "wdt": (fs, tp), "conv_w": (tp, None), "a_log": (tp,),
+                        "dskip": (tp,), "dt_bias": (tp,), "norm_g": (tp,), "wo": (tp, fs)}
+    if cfg.family == "ssm":
+        return specs
+    specs["ln2"] = (None,)
+    if cfg.is_moe:
+        ep = plan.tp_axis                          # experts over the tensor axis
+        specs["moe"] = {"router": (None, None), "hash_proj": (None, None),
+                        "w1": (ep, fs, None), "wg": (ep, fs, None), "w2": (ep, None, fs)}
+    else:
+        specs["mlp"] = {"wi": (fs, tp), "wg": (fs, tp), "wo": (tp, fs)}
+    return specs
+
+
+def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
+    """The reference's spec tree without allocating parameters: one tuple
+    per leaf, holding what its ``PartitionSpec`` holds (an axis name, a
+    tuple of names, or None per dimension), with a leading None on every
+    ``layers`` leaf."""
+    fs, tp = _fsdp(plan), plan.tp
+    specs: Dict[str, Any] = {}
+    if cfg.frontend == "tokens":
+        specs["embed"] = (None, tp) if plan.embed_dmodel_sharded else (tp, fs)
+    specs["unembed"] = (fs, tp)
+    specs["final_norm"] = (None,)
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return (None,) + tree
+    specs["layers"] = stacked(_block_specs(cfg, plan))
+    return specs
 
 
 # ------------------------------------------------------------------- forward
@@ -144,16 +199,44 @@ def forward(
     """Token/embedding batch -> logits [B, S, V] (+ aux: the MoE layers'
     ``aux_loss``/``drop_frac``/``expert_load`` averaged over layers)."""
     x, positions = _inputs(params, cfg, batch)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     auxs = []
     for i in range(cfg.n_layers):
-        x, aux = _block_apply(_layer(params["layers"], i), cfg, plan, mesh, x,
-                              positions, moe_opts, window)
+        lp = _layer(params["layers"], i)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _block_apply, lp, cfg, plan, mesh, x, positions, moe_opts, window,
+                use_reentrant=False)
+        else:
+            x, aux = _block_apply(lp, cfg, plan, mesh, x, positions, moe_opts, window)
         auxs.append(aux)
     logits = _unembed(params, cfg, x)
     if not auxs or not auxs[0]:
         return logits, {}
     return logits, {k: torch.stack([a[k] for a in auxs]).float().mean()
                     for k in auxs[0]}
+
+
+def loss_fn(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+            batch: Dict[str, torch.Tensor], *, moe_opts=None, window: int = 0,
+            aux_weight: float = 0.01):
+    """(loss, metrics): the mean next-token cross-entropy over labels >= 0
+    (float32 logits, log-sum-exp minus the gold logit), plus ``aux_weight``
+    times the MoE load-balance loss; metrics ``loss``, ``tokens`` and the
+    forward's aux values."""
+    logits, aux = forward(params, cfg, plan, mesh, batch, moe_opts=moe_opts,
+                          window=window)
+    labels = batch["labels"].long()
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    if aux and "aux_loss" in aux:
+        loss = loss + aux_weight * aux["aux_loss"]
+    metrics = {"loss": loss, "tokens": mask.sum(), **aux}
+    return loss, metrics
 
 
 # ------------------------------------------------------------------- prefill
@@ -301,8 +384,7 @@ def decode_step(
 
 @dataclasses.dataclass
 class ModelBundle:
-    """Convenience wrapper used by the launcher and examples (the
-    reference's ``loss`` method comes with the training slice)."""
+    """Convenience wrapper used by the launcher and examples."""
 
     cfg: ModelConfig
     plan: ShardingPlan
@@ -310,6 +392,9 @@ class ModelBundle:
 
     def init(self, gen: torch.Generator):
         return init_params(gen, self.cfg, self.plan)
+
+    def loss(self, params, batch, **kw):
+        return loss_fn(params, self.cfg, self.plan, self.mesh, batch, **kw)
 
     def decode(self, params, state, tok, **kw):
         return decode_step(params, self.cfg, self.plan, self.mesh, state, tok, **kw)

@@ -426,3 +426,82 @@ def test_cuda_bf16_bar_over_seeds(form):
                                 block_k=fa_kernel.KEY_TILE)
         share = cs.flash_bar_share(got.float(), want.float())
         assert share["bar_share"] <= 1.0, (form, seed, share)
+
+
+# --------------------------------------------------------------------------
+# gradients
+# --------------------------------------------------------------------------
+
+GRAD_CASES = [dict(s=128, hq=8, hkv=2, window=0, d=32),
+              dict(s=128, hq=8, hkv=2, window=40, d=32),
+              dict(s=100, hq=4, hkv=1, window=0, d=64),
+              dict(s=96, hq=4, hkv=4, window=17, d=32)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_attention_grads_vs_reference(case):
+    """dq, dk, dv of the port's attention on the CPU (autograd of the plain
+    version, which the card's gradient kernel is held to) against jax.grad
+    of the reference's blockwise_attention and plain_attention: GQA, a
+    sliding window, a length no block divides, at atol 1e-5 of the largest
+    entry and rtol 1e-4 in float32."""
+    s, d = case["s"], case["d"]
+    q, k, v = _qkv(2, case["hq"], case["hkv"], s, s, d, seed=s + case["window"])
+    do = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=True, window=case["window"],
+                           block_q=32, block_k=48)
+    got = torch.autograd.grad(o, leaves, _t(do))
+    # the reference's blockwise tiles must divide S (25 and 50 at S 100)
+    bq, bk = (32, 64) if s % 64 == 0 else (s // 4, s // 2)
+    for fn in (lambda *t: RA.blockwise_attention(*t, causal=True, window=case["window"],
+                                                 block_q=bq, block_k=bk),
+               lambda *t: RA.plain_attention(*t, causal=True, window=case["window"])):
+        want = jax.grad(lambda *t: jnp.sum(fn(*t) * do), argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = _np(w)
+            np.testing.assert_allclose(_np(g), w, atol=1e-5 * float(np.abs(w).max()),
+                                       rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("form", _chip_smoke().FLASH_BWD_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_chip_smoke_bwd_forms_are_accepted(form):
+    """chip_smoke.py's gradient forms: the shapes the gradient kernel takes
+    (S = T, a head dim it has, GQA)."""
+    _, _, b, hq, hkv, s, d, window, dt = form
+    assert d in fa_kernel.HEAD_DIMS and hq % hkv == 0 and dt in ("f32", "bf16")
+    assert window == 0 or window < s
+
+
+def test_bwd_kernel_refuses_cpu_and_s_not_t():
+    q, k, v = (_t(a) for a in _qkv(1, 4, 2, 64, 64, 32, seed=3))
+    n0 = fa_kernel.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_bwd(q, k, v, q, q)
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        fa_kernel.flash_attention(q.requires_grad_(True), k, v)
+    assert fa_kernel.BWD_LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_bwd_kernel_vs_plain(dtype):
+    """FlashAttentionFn on the card (its backward: the gradient kernel)
+    against autograd of the plain version, at chip_smoke.py's bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for s, window, d in ((256, 0, 64), (200, 64, 128), (130, 0, 32)):
+        q, k, v = (_t(a, dt).to(dev) for a in _qkv(2, 8, 2, s, s, d, seed=s))
+        do = torch.randn(q.shape, device=dev).to(dt)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        n0 = fa_kernel.BWD_LAUNCHES
+        o = fa.flash_attention(*leaves, causal=True, window=window)
+        got = torch.autograd.grad(o, leaves, do)
+        assert fa_kernel.BWD_LAUNCHES == n0 + 1
+        want = cs._attn_plain_grads(q, k, v, do, window,
+                                    fa_kernel.KEY_TILE if dtype == "bf16" else 1024)
+        assert cs._grad_share(got, want, *cs.FLASH_BWD_TOL[dtype]) <= 1.0, (dtype, s)

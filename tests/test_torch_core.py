@@ -237,11 +237,14 @@ def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
     assert prob2.mesh_spec == MeshSpec(devices=2)
     assert ([(c.short(), v.p99_latency_ns, v.drop_rate) for c, v in sharded.pareto]
             == [(c.short(), v.p99_latency_ns, v.drop_rate) for c, v in serial.pareto])
-    # the token server's production meshes come with training: still refused
+    # the token server's production mesh is ported with training: a host
+    # without its 512 devices refuses it with the mesh's device-count message
     from repro_torch.launch import serve as launch_serve
-    with pytest.raises(NotImplementedError, match="training"):
-        launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--mesh", "multi",
-                           "--device", "cpu"])
+    assert launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--mesh", "multi",
+                              "--device", "cpu"]) == 2
+    with pytest.raises(ValueError, match="needs 512 devices but only 2"):
+        from repro_torch.launch.mesh import make_production_mesh
+        make_production_mesh(multi_pod=True, device="cpu")
     # the ring-scan engine and fabrics are ported (tests/test_torch_ring_scan.py,
     # tests/test_torch_fabric.py): no refusal
     [v] = psim.run_netsim_batched(pcore.enumerate_candidates(req)[:1], bound,

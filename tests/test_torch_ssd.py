@@ -402,3 +402,192 @@ def test_cuda_kernel_matrix_vs_plain(p, n, xt, bc):
         torch.testing.assert_close(st, wst, atol=2e-3, rtol=2e-3)
         assert ssd_kernel.wgmma_smem(x.dtype, n, b.dtype) == ssd_kernel.plan(
             x.dtype, p, n, b.dtype)["smem"]
+
+
+# --------------------------------------------------------------------------
+# gradients
+# --------------------------------------------------------------------------
+
+def _grads_of(fn, arrays, dy):
+    """Autograd of the port's ``fn`` at float32 ``arrays``: their grads."""
+    leaves = [t.requires_grad_(True) for t in _t(*arrays)]
+    y = fn(*leaves)
+    return [g.numpy() for g in torch.autograd.grad(y, leaves, torch.from_numpy(dy))]
+
+
+@pytest.mark.parametrize("s,chunk,groups", [(128, 32, 1), (96, 96, 2), (64, 64, 4)])
+def test_chunked_grads_vs_reference(s, chunk, groups):
+    """The port's ssd_chunked (grouped B/C) differentiated by autograd
+    against jax.grad of the reference's ssd_chunked (per-head B/C; the
+    group's heads' gradients summed), where the reference's gradient is
+    finite (each chunk's decay above e^-88)."""
+    bh, p, n = 4, 32, 16
+    x, dt, a, b, c = _inputs(bh, s, p, n, seed=s + groups)
+    b, c = b[:groups], c[:groups]
+    dy = np.random.default_rng(s).standard_normal((bh, s, p)).astype(np.float32)
+    hpg = bh // groups
+    got = _grads_of(lambda *t: ssd.ssd_chunked(*t, chunk=chunk), (x, dt, a, b, c), dy)
+
+    def ref_loss(x_, dt_, a_, b_, c_):
+        y = ref_ops.ssd_chunked(x_, dt_, a_, jnp.repeat(b_, hpg, 0), jnp.repeat(c_, hpg, 0),
+                                chunk=chunk)
+        return jnp.sum(y * dy)
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3, 4))(*_j(x, dt, a, b, c))
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        w = _np(w)
+        assert np.isfinite(w).all(), name
+        np.testing.assert_allclose(g, w, atol=1e-4 * float(np.abs(w).max()), rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_chunked_grads_finite_where_reference_overflows():
+    """At mamba2's init (dt ~ softplus(N), a = -1) a 128-step chunk's decay
+    passes e^-88: the reference's ssd_chunked takes exp of the unmasked
+    upper triangle, and its gradient is NaN (ROADMAP, queue 3).  The port's
+    plain version masks before the exponential: its gradient is finite and
+    equals that of the serial recurrence ``ssd_ref`` (the reference's)."""
+    bh, s, p, n = 2, 256, 16, 16
+    x, dt, a, b, c = _inputs(bh, s, p, n, seed=8, dt_scale=1.0, a_scale=0.0)
+    dy = np.random.default_rng(9).standard_normal((bh, s, p)).astype(np.float32)
+    got = _grads_of(lambda *t: ssd.ssd_chunked(*t, chunk=128), (x, dt, a, b, c), dy)
+    ref_chunked = jax.grad(lambda *t: jnp.sum(ref_ops.ssd_chunked(*t, chunk=128) * dy),
+                           argnums=(0, 1, 2, 3, 4))(*_j(x, dt, a, b, c))
+    assert not all(np.isfinite(_np(g)).all() for g in ref_chunked)
+    serial = jax.grad(lambda *t: jnp.sum(ref_ref.ssd_ref(*t) * dy),
+                      argnums=(0, 1, 2, 3, 4))(*_j(x, dt, a, b, c))
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, serial):
+        w = _np(w)
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, atol=1e-3 * float(np.abs(w).max()), rtol=1e-3,
+                                   err_msg=name)
+
+
+def _emulate_bwd(x, dt, a, b, c, dy, hpg, L=64):
+    """``csrc/ssd_bwd.cu``'s scheme in float64: the chunk-start states S_c
+    and the reverse carries E_c, then each chunk's terms (A, W, Q, u, the
+    E/S halves of dB and dC, dcum and its reverse scan), per head, and dB,
+    dC summed over each group's heads.  Inputs [BH, S, ..] float64 tensors,
+    b/c [G, S, N]."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // L)
+    pad = nc * L - s
+    P = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad)) if t.dim() == 3 \
+        else torch.nn.functional.pad(t, (0, pad))                         # noqa: E731
+    x, dy, dt = P(x), P(dy), P(dt)
+    b, c = P(b), P(c)
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    da = torch.zeros(bh, dtype=x.dtype)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    tril = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    for h in range(bh):
+        g = h // hpg
+        xs, gs = x[h].reshape(nc, L, p), dy[h].reshape(nc, L, p)
+        bs, cs = b[g].reshape(nc, L, n), c[g].reshape(nc, L, n)
+        dts = dt[h].reshape(nc, L)
+        cum = torch.cumsum(dts * a[h], -1)
+        total = cum[:, -1]
+        st, states = torch.zeros(p, n, dtype=x.dtype), []
+        for ch in range(nc):
+            states.append(st)
+            w = torch.exp(total[ch] - cum[ch]) * dts[ch]
+            st = torch.exp(total[ch]) * st + (xs[ch] * w[:, None]).T @ bs[ch]
+        e, carries = torch.zeros(p, n, dtype=x.dtype), [None] * nc
+        for ch in reversed(range(nc)):
+            carries[ch] = e
+            e = torch.exp(total[ch]) * e + (gs[ch] * torch.exp(cum[ch])[:, None]).T @ cs[ch]
+        for ch in range(nc):
+            S, E, cm, tt, dd = states[ch], carries[ch], cum[ch], total[ch], dts[ch]
+            ex = torch.where(tril, torch.exp(torch.where(tril, cm[:, None] - cm[None], 0.)), 0.)
+            A = (cs[ch] @ bs[ch].T) * ex
+            G = gs[ch] @ xs[ch].T
+            W = ex * dd[None] * G
+            Q = A * dd[None] * G
+            dcum = Q.sum(1) - Q.sum(0)
+            u = A.T @ gs[ch] + torch.exp(tt - cm)[:, None] * (bs[ch] @ E.T)
+            dx[h, ch * L:(ch + 1) * L] = dd[:, None] * u
+            ddt_direct = (xs[ch] * u).sum(1)
+            eb = (dd * torch.exp(tt - cm))[:, None] * (xs[ch] @ E)
+            sc = torch.exp(cm)[:, None] * (gs[ch] @ S)
+            db[g, ch * L:(ch + 1) * L] += W.T @ cs[ch] + eb
+            dc[g, ch * L:(ch + 1) * L] += W @ bs[ch] + sc
+            U = (eb * bs[ch]).sum(1)
+            dcum = dcum + (sc * cs[ch]).sum(1) - U
+            dcum[-1] += U.sum() + torch.exp(tt) * (E * S).sum()
+            lam = torch.flip(torch.cumsum(torch.flip(dcum, [0]), 0), [0])
+            ddt[h, ch * L:(ch + 1) * L] = ddt_direct + a[h] * lam
+            da[h] += (dd * lam).sum()
+    return dx[:, :s], ddt[:, :s], da, db[:, :s], dc[:, :s]
+
+
+@pytest.mark.parametrize("s,groups", [(192, 1), (100, 2), (64, 4)])
+def test_bwd_kernel_scheme_vs_plain_autograd(s, groups):
+    """The backward kernel's arithmetic (``_emulate_bwd``: 64-step chunks,
+    forward states, reverse carries, per-chunk terms; a ragged tail at S
+    100) against autograd of the plain version, at mamba2's init's decays
+    (no chunk of the plain version overflows at chunk 32)."""
+    bh, p, n = 4, 32, 16
+    x, dt, a, b, c = _inputs(bh, s, p, n, seed=s * groups, dt_scale=0.5, a_scale=0.5)
+    b, c = b[:groups], c[:groups]
+    dy = np.random.default_rng(s).standard_normal((bh, s, p)).astype(np.float32)
+    chunk = 4 if s == 100 else 32
+    want = _grads_of(lambda *t: ssd.ssd_chunked(*t, chunk=chunk), (x, dt, a, b, c), dy)
+    got = _emulate_bwd(*(torch.from_numpy(v).double() for v in (x, dt, a, b, c, dy)),
+                       hpg=bh // groups)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4 * float(np.abs(w).max()),
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_bwd_kernel_refuses_cpu_and_grad_inputs():
+    x, dt, a, b, c = _t(*_inputs(2, 64, 32, 16, seed=0))
+    dy = torch.zeros_like(x)
+    n0 = ssd_kernel.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan_bwd(x, dt, a, b[:1], c[:1], dy)
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        ssd_kernel.ssd_scan(x.requires_grad_(True), dt, a, b[:1], c[:1])
+    assert ssd_kernel.BWD_LAUNCHES == n0
+    # the scratch the kernel takes: S_c and E_c, per-head dB/dC, da's parts
+    assert ssd_kernel.bwd_scratch_floats(48, 8192, 64, 128) == (
+        2 * 48 * 128 * 64 * 128 + 2 * 48 * 8192 * 128 + 48 * 128)
+
+
+@pytest.mark.parametrize("form", _chip_smoke().SSD_BWD_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_chip_smoke_bwd_forms_are_accepted(form):
+    _, _, heads, bh, s, p, n, chunk, _, _ = form
+    assert p in ssd_kernel.HEAD_DIMS and n in ssd_kernel.STATE_DIMS
+    assert bh % heads == 0 and s % chunk == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", ["f32", "bf16"])
+@pytest.mark.parametrize("xt", ["f32", "bf16"])
+def test_cuda_bwd_kernel_vs_plain(xt, bc):
+    """SSDScanFn on the card (its backward: the gradient kernel) against
+    autograd of the plain version in float32, at chip_smoke.py's bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    for s, groups in ((256, 1), (200, 2)):
+        ins = _inputs(4, s, 64, 128, seed=s, dt_scale=0.5, a_scale=0.5)
+        x, dt, a, b, c = (t.to(dev) for t in _t(*ins))
+        b, c = b[:groups], c[:groups]
+        dy = torch.randn(x.shape, device=dev)
+        xd = torch.float32 if xt == "f32" else torch.bfloat16
+        bd = torch.float32 if bc == "f32" else torch.bfloat16
+        leaves = [x.to(xd), dt, a, b.to(bd), c.to(bd)]
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        n0 = ssd_kernel.BWD_LAUNCHES
+        y = ssd.ssd_chunked(*leaves)
+        got = torch.autograd.grad(y, leaves, dy.to(xd))
+        assert ssd_kernel.BWD_LAUNCHES == n0 + 1
+        plain = [t.detach().float().requires_grad_(True) for t in leaves]
+        hpg = 4 // groups
+        yp = ssd.ssd_chunked_ref(plain[0], plain[1], plain[2],
+                                 torch.repeat_interleave(plain[3], hpg, 0),
+                                 torch.repeat_interleave(plain[4], hpg, 0), chunk=8)
+        want = torch.autograd.grad(yp, plain, dy.to(xd).float())
+        tol = cs.SSD_BWD_TOL["bf16" if "bf16" in (xt, bc) else "f32"]
+        assert cs._grad_share(got, want, *tol) <= 1.0, (xt, bc, s)
