@@ -39,7 +39,9 @@ final ``{"ok": true, ...}`` line:
            version in bfloat16 at the kernel's tiles, a mask one key off
            outside that bar; within 2e-2 of the plain version in float32),
            with a sliding window, and PyTorch's SDPA timed beside the
-           causal ones; bfloat16 D 64 and 128 must take the wgmma path;
+           causal ones; bfloat16 D 64 and 128 must take the wgmma path; o
+           bitwise the same with the gradient's log-sum-exp written, and
+           that lse within 1e-5 of the plain version's;
            the bfloat16 bar over seeds 0-31 at the D 128 and llama forms,
            every pair inside it; the SSD kernel at mamba2-780m's prefill
            and a ragged length (atol = rtol = 2e-3; y and the final state);
@@ -48,7 +50,11 @@ final ``{"ok": true, ...}`` line:
            (FLASH_BWD_FORMS: float32 and bfloat16, D 64 and 128, causal and
            hymba's window of 1,024, GQA 32/8, llama3.2-1b's training shape
            [1, 32/8, 8192, 64] and ragged lengths, a mask one key off
-           outside the bar, SDPA's backward timed beside the causal ones;
+           outside the bar, SDPA's backward timed beside the causal ones,
+           bfloat16 D 64/128 on the wgmma passes from the forward's
+           log-sum-exp, each of its three launches timed alone; the
+           bfloat16 gradient over 64 seeds at four small forms (D 64 and
+           128, a window, ragged lengths), every pair inside the bar;
            SSD_BWD_FORMS: mamba2-780m's [48, 8192, 64, 128] and a ragged
            length, float32 and bfloat16 x/B/C), each with ms per call,
            kernel alone and its bound; the ring-scan stage-4
@@ -140,11 +146,12 @@ final ``{"ok": true, ...}`` line:
            lr 3e-4 with a warmup of 2, one SyntheticLM sequence of 8,192
            tokens a step, 6 steps each: every loss finite and the last
            below the first, every parameter's step-0 gradient finite and
-           non-zero somewhere, flash_attention_bwd 16 and ssd_scan_bwd 48
-           launches a step (the forward kernels 32 and 96: remat's
-           recompute); step wall, tokens/s, the kernels' share (CUDA
-           events), peak memory; then one AdamW step at 2 layers, full
-           width, 1 x 1,024 tokens in float32 against the JAX package's
+           non-zero somewhere, flash_attention_bwd 16 (all on its wgmma
+           passes) and ssd_scan_bwd 48 launches a step (the forward
+           kernels 32 and 96: remat's recompute); step wall, tokens/s, the
+           kernels' and the gradients' share (CUDA events), peak memory;
+           then one AdamW step at 2 layers, full width, 1 x 1,024 tokens
+           in float32 against the JAX package's
            in tests/torch_golden/train_{llama,mamba} (loss, gradient
            norms, gradient and updated-parameter slices).
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
@@ -566,6 +573,7 @@ def phase_kernels(dev, stats):
     ok &= kernels_flash_seeds(dev, stats)
     ok &= kernels_ssd(dev, stats)
     ok &= kernels_flash_bwd(dev, stats)
+    ok &= kernels_flash_bwd_seeds(dev, stats)
     ok &= kernels_ssd_bwd(dev, stats)
     ok &= kernels_ring_scan(dev, stats)
     if not ok:
@@ -1011,6 +1019,10 @@ FLASH_BF16_ATOL = 1e-3
 #: KEY_TILE; tests/test_torch_attention.py holds the two equal); the FMA
 #: path's tile is the wrapper's plan()
 FLASH_TILE = 128
+#: the forward's log-sum-exp (the gradient's input) against the plain
+#: version's: |lse - want| <= FLASH_LSE_TOL * max(1, |want|).  Sums in
+#: another order and MUFU.EX2 (2^-22 relative a term) move it by ~1e-6
+FLASH_LSE_TOL = 1e-5
 
 
 def kernels_flash(dev, stats):
@@ -1023,7 +1035,9 @@ def kernels_flash(dev, stats):
     outside it on the rows of the sequence's second half.  bfloat16 D 64 and
     128 must take the wgmma path (its launch counter), with the shared
     memory the wrapper's plan() states.  SDPA is timed on every causal form
-    without a window."""
+    without a window.  Each form also runs with the log-sum-exp buffer the
+    gradient takes: o must be bitwise the call's without it, and lse within
+    FLASH_LSE_TOL of the plain version's (blockwise_ref's return_lse)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1050,13 +1064,18 @@ def kernels_flash(dev, stats):
                "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
                "path": plan["path"], "key_tile": plan["key_tile"],
                "fma_rows": plan.get("fma_rows", s)}
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        with_lse = fk.flash_attention(q, k, v, causal=True, window=window, lse=lse)
+        rec["o_bitwise_with_lse"] = bool(torch.equal(with_lse, got))
+        del with_lse
         if dt == "f32":
-            want = plain()
+            want, want_lse = blockwise_ref(q, k, v, causal=True, window=window,
+                                           return_lse=True)
             err = float((got - want).abs().max())
             good = bool(torch.allclose(got, want, atol=3e-5, rtol=3e-5))
         else:
-            want = blockwise_ref(q, k, v, causal=True, window=window,
-                                 block_k=plan["key_tile"])
+            want, want_lse = blockwise_ref(q, k, v, causal=True, window=window,
+                                           block_k=plan["key_tile"], return_lse=True)
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             # the largest share of the bar taken; allclose passes at <= 1
@@ -1078,7 +1097,10 @@ def kernels_flash(dev, stats):
                 late, off.float(), atol=FLASH_BF16_ATOL, rtol=2 ** -7))
             good &= rec["one_key_off_caught"]
             del off, late
-        del want
+        rec["lse_share"] = float(((lse - want_lse).abs()
+                                  / (FLASH_LSE_TOL * want_lse.abs().clamp_min(1.0))).max())
+        good &= rec["o_bitwise_with_lse"] and rec["lse_share"] <= 1.0
+        del want, want_lse, lse
         moved, flops = _attn_work(b, hq, hkv, s, d, window, got.element_size())
         bound, by = _bound(moved, flops, got.element_size())
         rec.update({"max_abs_err": err, "within_tolerance": good,
@@ -1403,14 +1425,24 @@ def _attn_plain_grads(q, k, v, do, window, block_k):
     return dq, dk, dv
 
 
+#: the gradient's wgmma passes run seven products a visible (query, key)
+#: pair (S^T, dP^T, dV, dK; S, dP, dQ) where the function needs five
+FLASH_BWD_SPLIT_PRODUCTS = 7
+
+
 def kernels_flash_bwd(dev, stats):
     """The attention gradient kernel against autograd of its plain version
     on the card, per FLASH_BWD_FORMS at FLASH_BWD_TOL (bfloat16 also against
     the plain version in float32 within 2e-2 of the largest entry, and
     against the gradient of a mask one key off, which must fall outside
-    the bar); ms per call, kernel alone, the bound (the gradient's least
-    work, 2.5x the forward's at the same causal shape, at the dtype's peak),
-    the plain version's wall and SDPA's backward on the same inputs."""
+    the bar), from the forward's log-sum-exp; bfloat16 D 64 and 128 must
+    run on the wgmma passes and float32 on the FMA passes (the library's
+    report, BWD_LAUNCHES_WGMMA).  ms per call, kernel alone, each of its
+    three launches alone (the pre-pass, dK/dV, dQ), TFLOP/s of the
+    function's work, the bound (the gradient's least work, 2.5x the
+    forward's at the same causal shape, at the dtype's peak), the passes'
+    own seven products at that peak (bound_split_ms), the plain version's
+    wall and SDPA's backward on the same inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1421,13 +1453,20 @@ def kernels_flash_bwd(dev, stats):
         q, k, v = _attn_inputs(b, hq, hkv, s, d, dev, dtype, seed=s + hq + 1)
         do = torch.randn(q.shape, device=dev,
                          generator=torch.Generator(dev).manual_seed(s)).to(dtype)
-        o = fk.flash_attention(q, k, v, causal=True, window=window)
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        o = fk.flash_attention(q, k, v, causal=True, window=window, lse=lse)
         kern = lambda: fk.flash_attention_bwd(q, k, v, o, do, causal=True,  # noqa: E731
-                                              window=window)
-        n0 = fk.BWD_LAUNCHES
+                                              window=window, lse=lse)
+        plan = fk.plan_bwd(dtype, d, s)
+        n0, w0 = fk.BWD_LAUNCHES, fk.BWD_LAUNCHES_WGMMA
         got = kern()
         torch.cuda.synchronize()
         assert fk.BWD_LAUNCHES == n0 + 1, "flash_attention_bwd did not launch"
+        wgmma = dt == "bf16" and d in (64, 128)
+        assert plan["path"] == ("wgmma" if wgmma else "fma"), (form, plan)
+        assert fk.BWD_LAUNCHES_WGMMA == w0 + wgmma, f"{form} {shape} took the wrong path"
+        if wgmma:
+            assert fk.bwd_wgmma_smem(d) == plan["smem"], (form, fk.bwd_wgmma_smem(d), plan)
         block_k = fk.KEY_TILE if dt == "bf16" else 1024
         plain = lambda: _attn_plain_grads(q, k, v, do, window, block_k)  # noqa: E731
         t0 = time.perf_counter()
@@ -1437,6 +1476,7 @@ def kernels_flash_bwd(dev, stats):
         atol_frac, rtol = FLASH_BWD_TOL[dt]
         rec = {"kernel": "flash_attention_bwd", "form": form, "shape": shape, "B": b,
                "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "path": plan["path"],
                "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                   for g, w in zip(got, want)),
                "max_abs_grad": max(float(w.float().abs().max()) for w in want),
@@ -1468,6 +1508,17 @@ def kernels_flash_bwd(dev, stats):
                     "kernel_ms": launch_ms(kern, reps=3), "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": by, "flop": 2.5 * fwd_flops,
                     "library_ms": None})
+        rec["tflops"] = rec["flop"] / (rec["ms"] * 1e-3) / 1e12
+        if wgmma:
+            rec["bound_split_ms"] = _bound(moved, FLASH_BWD_SPLIT_PRODUCTS / 2 * fwd_flops,
+                                           item)[0]
+        # each launch alone, on one scratch that the pre-pass fills first
+        scratch = torch.empty((2, b * hq * plan["pitch"]), dtype=torch.float32, device=dev)
+        for name, passes in (("pre", 1), ("kv", 2), ("q", 4)):
+            rec[f"{name}_ms"] = launch_ms(lambda: fk.bwd_passes(  # noqa: B023
+                q, k, v, o, do, causal=True, window=window, lse=lse, passes=passes,
+                scratch=scratch), reps=3)
+        del scratch
         if not window:
             qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             with torch.enable_grad():
@@ -1478,8 +1529,63 @@ def kernels_flash_bwd(dev, stats):
         stats["forms"].append(rec)
         say("kernels", **rec)
         ok &= good
-        del q, k, v, do, o, got, want
+        del q, k, v, do, o, lse, got, want
         torch.cuda.empty_cache()
+    return ok
+
+
+#: the bfloat16 gradient's seed sweep: (form, B, Hq, Hkv, S, D, window) at
+#: small shapes (D 64 and 128, a window, lengths no tile divides) and the
+#: seeds, each an (inputs, incoming gradient) pair; every pair must pass
+#: FLASH_BWD_TOL (the forward's bf16 rounding-tie fault showed only in such
+#: a sweep)
+FLASH_BWD_SEED_FORMS = (("d64_ragged", 1, 8, 2, 1000, 64, 0),
+                        ("d128_causal", 1, 8, 2, 512, 128, 0),
+                        ("d64_window_ragged", 1, 8, 2, 1000, 64, 300),
+                        ("d128_window_ragged", 1, 8, 2, 777, 128, 200))
+FLASH_BWD_SEEDS = range(64)
+
+
+def flash_bwd_seed_share(form, seed, dev):
+    """One pair of the gradient's seed sweep: FlashAttentionFn's gradient
+    (the forward's lse, the wgmma passes) against autograd of the plain
+    version at KEY_TILE, as the share of FLASH_BWD_TOL taken, and whether
+    the call ran on the wgmma passes."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+
+    _, b, hq, hkv, s, d, window = form
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dev, torch.bfloat16, seed)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(dev).manual_seed(
+        seed + 10_000)).bfloat16()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    w0 = fk.BWD_LAUNCHES_WGMMA
+    with torch.enable_grad():
+        out = FlashAttentionFn.apply(*leaves, True, window)
+        got = torch.autograd.grad(out, leaves, do)
+    want = _attn_plain_grads(q, k, v, do, window, fk.KEY_TILE)
+    return {"seed": seed, "bar_share": _grad_share(got, want, *FLASH_BWD_TOL["bf16"]),
+            "wgmma": fk.BWD_LAUNCHES_WGMMA == w0 + 1}
+
+
+def kernels_flash_bwd_seeds(dev, stats):
+    """The bfloat16 gradient over FLASH_BWD_SEEDS at each of
+    FLASH_BWD_SEED_FORMS: the bar share of each pair, the worst, and the
+    pairs past the bar or off the wgmma passes.  False if any."""
+    import torch
+    ok = True
+    for form in FLASH_BWD_SEED_FORMS:
+        shares = [flash_bwd_seed_share(form, seed, dev) for seed in FLASH_BWD_SEEDS]
+        failing = [r for r in shares if r["bar_share"] > 1.0 or not r["wgmma"]]
+        ok &= not failing
+        rec = {"kernel": "flash_attention_bwd", "form": "bf16_seed_sweep", "shape": form[0],
+               "seeds": len(shares), "worst": max(shares, key=lambda r: r["bar_share"]),
+               "failing_seeds": len(failing), "first_failing": failing[0] if failing else None,
+               "bar_shares": [r["bar_share"] for r in shares]}
+        stats["flash_seeds"].append(rec)
+        say("kernels", **rec)
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -1717,6 +1823,7 @@ def _counters():
             "flash_attention": (fk, "LAUNCHES"),
             "flash_attention_wgmma": (fk, "LAUNCHES_WGMMA"),
             "flash_attention_bwd": (fk, "BWD_LAUNCHES"),
+            "flash_attention_bwd_wgmma": (fk, "BWD_LAUNCHES_WGMMA"),
             "ssd_scan": (sk, "LAUNCHES"),
             "ssd_scan_bwd": (sk, "BWD_LAUNCHES")}
 
@@ -1727,7 +1834,8 @@ def _reset_counters():
 
 
 def _read_counters():
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    # a tree without one of the counters (tests/torch_scan_ab.py --src) reads 0
+    return {name: getattr(mod, attr, 0) for name, (mod, attr) in _counters().items()}
 
 
 def phase_path(dev, stats):
@@ -2609,9 +2717,11 @@ def path_train(dev, stats):
     SyntheticLM sequence of 8,192 tokens a step, TRAIN_STEPS steps; every
     loss finite and the last below the first, every parameter's gradient
     in step 0 finite and non-zero somewhere, flash_attention_bwd launched
-    once per attention layer and ssd_scan_bwd once per SSM layer each step
-    (the forward kernels twice: the forward and remat's recompute); then
-    the 2-layer fixtures against the reference's train step."""
+    once per attention layer (every call on its wgmma passes) and
+    ssd_scan_bwd once per SSM layer each step (the forward kernels twice:
+    the forward and remat's recompute), with the gradients' share of the
+    step (CUDA events); then the 2-layer fixtures against the reference's
+    train step."""
     import torch
     from repro_torch import convert
     from repro_torch.configs import get_config
@@ -2656,7 +2766,9 @@ def path_train(dev, stats):
             step = make_train_step(cfg, PLAN, None, opt,
                                    TrainSpec(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS))
             state = opt.init(params)
-            want = ({"flash_attention_bwd": layers, "flash_attention": 2 * layers}
+            # llama's gradient calls all on the wgmma passes (bf16, D 64)
+            want = ({"flash_attention_bwd": layers, "flash_attention_bwd_wgmma": layers,
+                     "flash_attention": 2 * layers}
                     if cfg.has_attention else {"ssd_scan_bwd": layers, "ssd_scan": 2 * layers})
             losses = []
             for i in range(TRAIN_STEPS):
@@ -2681,6 +2793,8 @@ def path_train(dev, stats):
                        "loss": loss, "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
                        "wall_s": wall, "tokens_per_s": TRAIN_SEQ / wall, "launches": launches,
                        "kernel_ms": kms, "kernel_share": sum(kms.values()) / (wall * 1e3),
+                       "grad_share": sum(v for k, v in kms.items() if k.endswith("_bwd"))
+                       / (wall * 1e3),
                        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                        "init_s": init_s, "ok": ok}
                 stats["train"].append(rec)
@@ -2695,8 +2809,8 @@ def path_train(dev, stats):
             failures += _train_fixture(stem, arch, dev, stats)
     finally:
         undo()
-    stats["launches"].update({k: totals.get(k, 0) for k in ("flash_attention_bwd",
-                                                             "ssd_scan_bwd")})
+    stats["launches"].update({k: totals.get(k, 0) for k in (
+        "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan_bwd")})
     say("path", path="train", launches=totals, seconds=time.perf_counter() - t_path)
     return failures
 

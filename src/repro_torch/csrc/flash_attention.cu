@@ -12,6 +12,8 @@
 //   m     = running max, l = l * exp(m_old - m) + sum_j exp(s_ij - m)
 //   acc   = acc * exp(m_old - m) + round_to(dtype, exp(s_ij - m)) . v_j
 //   o_i   = round_to(dtype, acc / max(l, 1e-30))
+//   lse_i = m + ln l  (m of scaled scores; float32, where the caller passes a
+//           buffer: the gradient kernel's input, which leaves o as it is)
 // P is rounded to the input dtype before the PV product and accumulated in
 // float32, as the reference's `p.astype(q.dtype)` does.  Query head h reads
 // key/value head h / (Hq / Hkv): no key or value is repeated in memory.
@@ -64,27 +66,9 @@
 // It costs ~0.08 ms a call at llama3.2-1b's prefill (2.68-2.69 -> 2.77-2.78
 // ms on one H100, tests/torch_scan_ab.py against the tree before it).
 //
-// Where the design met trouble:
-//   - TMA from a ctypes library: cuTensorMapEncodeTiled is a driver call and
-//     the build links no libcuda; the runtime's cudaGetDriverEntryPoint hands
-//     it out.  The maps go to the kernel as __grid_constant__ parameters.
-//   - The maps are 3-D over [B*H, S or T, D]: a ragged last tile reads zeros
-//     inside its own head, where a 2-D map over [B*H*T, D] would read the
-//     next head's rows.
-//   - SWIZZLE_128B limits a box's inner extent to 128 bytes (64 bf16): a
-//     D 128 tile is two 64-column chunks, and the k-steps of Q.K^T walk
-//     across both (+32 bytes per k-step inside a chunk, the chunk size
-//     between them); P.V's B operand spans both through the descriptor's
-//     leading byte offset.
-//   - The shared-memory descriptor must say what TMA wrote (128-byte
-//     swizzle, 1,024 bytes between 8-row groups, tiles 1,024-aligned): a
-//     mismatch gives wrong numbers, not a fault, and the bf16 bar in
-//     chip_smoke.py is what catches it.
-//   - wgmma's accumulator holds a row's scores in the 4 lanes of a quad, in
-//     registers 4i + {0,1} (row g) and 4i + {2,3} (row g + 8) of each
-//     8-column block i; two blocks make one k-step's A fragment of P.
-//   - The compiler does not know that wgmma writes its registers late:
-//     every read of an accumulator is fenced after wgmma.wait_group.
+// Where the design met trouble (TMA maps, the swizzle, descriptors and
+// accumulator fragments: csrc/hopper_wgmma.cuh, which the gradient's wgmma
+// passes share):
 //   - Registers: a mask path that worked out each element's absolute
 //     column spilled ~1 KB a thread at 128-key tiles; comparing the tile's
 //     column offsets with per-row limits does not.  S (64 floats), P (32
@@ -99,6 +83,8 @@
 #include <math.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -145,8 +131,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int KT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int hq, int hkv, int s, int t, float scale,
-          int causal, int window) {
+          T* __restrict__ o, float* __restrict__ lse, int hq, int hkv, int s, int t,
+          float scale, int causal, int window) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DC = D / 16;                      // output columns per thread
   constexpr int KPT = KT / 16;                    // keys per thread
@@ -280,6 +266,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     T* op = o + ((size_t)bh * s + r) * D + tx * DC;
 #pragma unroll
     for (int c = 0; c < DC; ++c) op[c] = from_f<T>(acc[i][c] / den);
+    // the row's log-sum-exp of scaled scores (m is of scaled scores here)
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * s + r] = m[i] + logf(l[i]);
   }
 }
 
@@ -314,16 +302,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 namespace wg {
 
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
 constexpr int ROWS = 64;        // query rows per consumer warpgroup
-constexpr int CH = 64;          // bf16 columns per 128-byte swizzled chunk
-constexpr int CHUNK_ROW = 128;  // bytes of one row of a chunk
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D_, int NS_, int NWG_>
 struct Cfg {
@@ -356,107 +335,6 @@ using Cfg64 = Cfg<64, 3, 3>;
 using Cfg128 = Cfg<128, 2, 2>;
 static_assert(Cfg64::SMEM <= 232448 && Cfg128::SMEM <= 232448, "shared memory");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done;
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try(bar, parity)) {
-  }
-}
-
-// one box of a 3-D tensor map into shared memory; completes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
-                                         int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// float registers stay put across the asynchronous product (the compiler
-// must not move them while wgmma reads or writes them)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// Shared-memory matrix descriptor of a tile stored in 128-byte-swizzled
-// chunks (what TMA's SWIZZLE_128B writes): start address >> 4 in bits 0-13,
-// leading byte offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, the
-// 128-byte swizzle (1) in bits 62-63.  The stride byte offset is 1,024: eight
-// 128-byte rows.  K-major operands (Q, K) ignore the leading offset (it is
-// set to 16 bytes); the MN-major V takes the distance between its 64-column
-// chunks there.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead_bytes) {
-  return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(lead_bytes >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ float ex2(float x) {    // 2^x (MUFU.EX2; 2^-inf = 0)
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// two floats rounded to bf16 (nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  return x + __shfl_xor_sync(FULL, x, 2);
-}
-
 // the key tiles [lo, hi] that rows row_lo..row_hi (absolute, offset T - S
 // included) must visit; where some row sees no key (row_lo < 0 under the
 // causal mask) every tile is visited, so such rows average every value
@@ -470,95 +348,18 @@ __device__ __forceinline__ void tile_range(int row_lo, int row_hi, int t, int bk
   }
 }
 
-// d += A[64 x 16] . B[16 x N], N = 2 x the floats of d: A from registers
-// (bf16 pairs), B from shared memory MN-major (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (+)= A[64 x 16] . B[16 x 128]: A and B from shared memory, both
-// K-major; scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// S = Q.K^T for one key tile: D / 16 k-steps, +32 bytes each inside a
-// 64-column chunk, a chunk's size between chunks
+// S = Q.K^T for one key tile
 template <class C>
 __device__ __forceinline__ void issue_scores(float (&sc)[C::BK / 2], uint64_t dq,
                                              uint32_t sk) {
-  const uint64_t dk = desc(sk, 16);
-#pragma unroll
-  for (int kk = 0; kk < C::D / 16; ++kk)
-    wgmma_ss(sc, dq + (kk / 4) * (C::Q_CHUNK >> 4) + (kk % 4) * 2,
-             dk + (kk / 4) * (C::KV_CHUNK >> 4) + (kk % 4) * 2, kk > 0);
+  ss_product<C::D>(sc, dq, desc(sk, 16), C::Q_CHUNK, C::KV_CHUNK);
 }
 
-// O += P.V for one key tile: BK / 16 k-steps of 16 keys (2 x 1,024 bytes)
+// O += P.V for one key tile: BK / 16 k-steps of 16 keys
 template <class C>
 __device__ __forceinline__ void issue_pv(float (&acc)[C::D / 2],
                                          const uint32_t (&pa)[C::BK / 16][4], uint32_t sv) {
-  const uint64_t dv = desc(sv, C::KV_CHUNK);
-#pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk)
-    wgmma_rs(acc, pa[kk], dv + kk * (2048 >> 4));
+  rs_product<C::BK>(acc, pa, sv, C::KV_CHUNK);
 }
 
 // the online softmax of one tile, in place: raw scores in, p out; m and l
@@ -625,19 +426,6 @@ __device__ __forceinline__ void softmax(float (&sc)[C::BK / 2], float (&m)[2], f
   }
 }
 
-// P rounded to bf16 as the A fragments of P.V: 8-column blocks 2 kk and
-// 2 kk + 1 of the score accumulator make k-step kk
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&sc)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = pack_f(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_f(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_f(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_f(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 template <int ON>
 __device__ __forceinline__ void rescale(float (&acc)[ON], const float (&alpha)[2]) {
 #pragma unroll
@@ -660,9 +448,10 @@ __device__ __forceinline__ void rescale(float (&acc)[ON], const float (&alpha)[2
 // tile j's P.V spilled at D 128 and could not run three warpgroups).
 template <class C>
 __device__ __forceinline__ void consume(uint32_t sq, uint32_t skv, uint32_t bars,
-                                        __nv_bfloat16* __restrict__ o, int bh, int q0,
-                                        int w, int s, int t, float c, int causal,
-                                        int window, int jlo, int jhi) {
+                                        __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse, int bh, int q0,
+                                        int w, int s, int t, float c, float scale,
+                                        int causal, int window, int jlo, int jhi) {
   constexpr int D = C::D, BK = C::BK, NS = C::NS, NWG = C::NWG;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -732,8 +521,12 @@ __device__ __forceinline__ void consume(uint32_t sq, uint32_t skv, uint32_t bars
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + warp * 16 + g + 8 * h;
-    const float den = fmaxf(quad_sum(l[h]), 1e-30f);
+    const float lsum = quad_sum(l[h]);
+    const float den = fmaxf(lsum, 1e-30f);
     if (r >= s) continue;
+    // the row's log-sum-exp: m is the running max of raw scores here, and
+    // l sums 2^(x c - m c) = exp(x scale - m scale)
+    if (lse != nullptr && tq == 0) lse[(size_t)bh * s + r] = m[h] * scale + logf(lsum);
     __nv_bfloat16* op = o + ((size_t)bh * s + r) * D + 2 * tq;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
@@ -745,8 +538,9 @@ __device__ __forceinline__ void consume(uint32_t sq, uint32_t skv, uint32_t bars
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int hq,
-            int hkv, int s, int t, float c, int causal, int window, int q_base) {
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+            float* __restrict__ lse, int hq, int hkv, int s, int t, float c, float scale,
+            int causal, int window, int q_base) {
   constexpr int NS = C::NS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;   // 1,024-aligned tiles
@@ -793,55 +587,15 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
-    consume<C>(sq, skv, bars, o, bh, q0, w - 1, s, t, c, causal, window, jlo, jhi);
+    consume<C>(sq, skv, bars, o, lse, bh, q0, w - 1, s, t, c, scale, causal, window, jlo,
+               jhi);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call and the library links no
-// libcuda: the runtime hands out the driver's entry point
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 3-D map over a contiguous [heads, rows, d] bf16 tensor whose box is one
-// 64-column chunk of `box_rows` rows of one head; rows past the end of a head
-// read as zeros (a 2-D map over [heads * rows, d] would read the next head)
-bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int heads, int rows,
-                int d, int box_rows) {
-  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(rows), cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(d) * 2, cuuint64_t(rows) * d * 2};
-  const cuuint32_t box[3] = {cuuint32_t(CH), cuuint32_t(box_rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // query rows q_base .. s - 1 (rows before q_base are the FMA path's)
 template <class C>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-           int s, int t, float scale, int causal, int window, int q_base,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int hq,
+           int hkv, int s, int t, float scale, int causal, int window, int q_base,
            cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return int(cudaErrorNotSupported);
@@ -856,8 +610,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
   if (e != cudaSuccess) return int(e);
   const dim3 grid((s - q_base + C::BQ - 1) / C::BQ, b * hq);
   flash_wgmma<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, s, t, scale * LOG2E, causal,
-      window, q_base);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, hq, hkv, s, t, scale * LOG2E, scale,
+      causal, window, q_base);
   return int(cudaGetLastError());
 }
 
@@ -865,8 +619,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
 
 // query rows 0 .. rows - 1 on the FMA pipes, KT keys per tile
 template <typename T, int D, int KT = BK>
-int launch_d(const void* q, const void* k, const void* v, void* o, int b, int hq,
-             int hkv, int s, int t, float scale, int causal, int window,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+             int hq, int hkv, int s, int t, float scale, int causal, int window,
              cudaStream_t stream, int rows) {
   const size_t smem = smem_bytes<D, KT>();
   cudaError_t e = cudaFuncSetAttribute(flash_fwd<T, D, KT>,
@@ -876,22 +630,27 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b, int hq
   const dim3 grid((rows + BQ - 1) / BQ, b * hq);
   flash_fwd<T, D, KT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), hq, hkv, s, t, scale, causal, window);
+      static_cast<T*>(o), lse, hq, hkv, s, t, scale, causal, window);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int hq,
            int hkv, int s, int t, int d, float scale, int causal, int window,
            void* stream) {
   if (b <= 0 || s <= 0 || t <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || b * hq > 65535) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_d<T, 32>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
-    case 64: return launch_d<T, 64>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
+    case 32:
+      return launch_d<T, 32>(q, k, v, o, lse, b, hq, hkv, s, t, scale, causal, window, st,
+                             s);
+    case 64:
+      return launch_d<T, 64>(q, k, v, o, lse, b, hq, hkv, s, t, scale, causal, window, st,
+                             s);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, st, s);
+      return launch_d<T, 128>(q, k, v, o, lse, b, hq, hkv, s, t, scale, causal, window, st,
+                              s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -900,16 +659,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
 // wgmma path's key tile (see the note at the top; kernel.py's plan() names
 // them fma_rows), the rest on wgmma
 template <class C>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                int hkv, int s, int t, float scale, int causal, int window,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                int hq, int hkv, int s, int t, float scale, int causal, int window,
                 cudaStream_t st, int* wgmma) {
   const int head = std::min(s, int(C::BQ));
   if (head > 0) {
-    const int e = launch_d<__nv_bfloat16, C::D, C::BK>(q, k, v, o, b, hq, hkv, s, t, scale,
-                                                       causal, window, st, head);
+    const int e = launch_d<__nv_bfloat16, C::D, C::BK>(q, k, v, o, lse, b, hq, hkv, s, t,
+                                                       scale, causal, window, st, head);
     if (e != 0 || head == s) return e;
   }
-  const int e = wg::launch<C>(q, k, v, o, b, hq, hkv, s, t, scale, causal, window, head, st);
+  const int e =
+      wg::launch<C>(q, k, v, o, lse, b, hq, hkv, s, t, scale, causal, window, head, st);
   *wgmma = e == 0;
   return e;
 }
@@ -918,30 +678,32 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
 
 extern "C" {
 
-// q [b, hq, s, d], k/v [b, hkv, t, d], o [b, hq, s, d], all contiguous.
+// q [b, hq, s, d], k/v [b, hkv, t, d], o [b, hq, s, d], all contiguous; lse
+// [b, hq, s] float32, or null: each row's log-sum-exp of its scaled scores
+// (the gradient's input), which changes nothing in o.
 // *wgmma is set to 1 where the wgmma kernel was launched, else to 0.
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int b,
-                        int hq, int hkv, int s, int t, int d, float scale,
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int b, int hq, int hkv, int s, int t, int d, float scale,
                         int causal, int window, void* stream, int* wgmma) {
   *wgmma = 0;
-  return launch<float>(q, k, v, o, b, hq, hkv, s, t, d, scale, causal, window, stream);
+  return launch<float>(q, k, v, o, lse, b, hq, hkv, s, t, d, scale, causal, window, stream);
 }
 
 // D 64 and 128 take the wgmma path; D 32 the FMA path.  q, k and v must
 // start on 16-byte boundaries (TMA's rule for a map's base).
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                         int hq, int hkv, int s, int t, int d, float scale,
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int b, int hq, int hkv, int s, int t, int d, float scale,
                          int causal, int window, void* stream, int* wgmma) {
   *wgmma = 0;
   if (b > 0 && s > 0 && t > 0 && hkv > 0 && hq % hkv == 0 && b * hq <= 65535 &&
       (d == 64 || d == 128)) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return d == 64 ? launch_bf16<wg::Cfg64>(q, k, v, o, b, hq, hkv, s, t, scale, causal,
-                                            window, st, wgmma)
-                   : launch_bf16<wg::Cfg128>(q, k, v, o, b, hq, hkv, s, t, scale, causal,
-                                             window, st, wgmma);
+    return d == 64 ? launch_bf16<wg::Cfg64>(q, k, v, o, lse, b, hq, hkv, s, t, scale,
+                                            causal, window, st, wgmma)
+                   : launch_bf16<wg::Cfg128>(q, k, v, o, lse, b, hq, hkv, s, t, scale,
+                                             causal, window, st, wgmma);
   }
-  return launch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, t, d, scale, causal, window,
+  return launch<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, s, t, d, scale, causal, window,
                                stream);
 }
 

@@ -20,14 +20,24 @@ start on a 16-byte boundary.  ``LAUNCHES`` counts the launches of this
 process, ``LAUNCHES_WGMMA`` those that the library reports it launched on
 the ``wgmma`` path.
 
-``flash_attention_bwd(q, k, v, o, do, causal=, window=)`` launches the
-gradient kernel (``csrc/flash_attention_bwd.cu``, which replaces no Pallas
-kernel: the reference takes this gradient by autodiff of
+``flash_attention(..., lse=buf)`` also writes each row's log-sum-exp of
+its scaled scores into ``buf`` (float32 [B, Hq, S]); ``o`` is the same
+with or without it.  The plain counterpart is ``ref.blockwise_ref(...,
+return_lse=True)``.
+
+``flash_attention_bwd(q, k, v, o, do, causal=, window=, lse=)`` launches
+the gradient kernel (``csrc/flash_attention_bwd.cu``, which replaces no
+Pallas kernel: the reference takes this gradient by autodiff of
 ``blockwise_attention``) for the same forms with S = T, giving (dq, dk,
-dv) in q's dtype, equal to autograd of ``ref.blockwise_ref`` up to float32
-summation order (and, in bfloat16, the rounding of P before P.V, which
-that autograd passes straight through).  ``BWD_LAUNCHES`` counts its calls
-(three launches each: the pre-pass, dK/dV, dQ).  Both bindings raise when
+dv) in q's dtype, equal to autograd of ``ref.blockwise_ref`` within
+``chip_smoke.FLASH_BWD_TOL``.  It takes the forward's ``lse``; without
+one it launches the forward kernel once more to write it.  Three
+launches a call: a pre-pass (D = do.o, bytes-bound), the dK/dV pass and
+the dQ pass.  ``plan_bwd`` says which path a call takes, as ``plan``
+does for the forward: bfloat16 with D 64/128 on ``wgmma`` (P and dS
+rounded to bfloat16 as product operands), float32 and D 32 on the FMA
+pipes.  ``BWD_LAUNCHES`` counts its calls, ``BWD_LAUNCHES_WGMMA`` those
+that the library reports it ran on ``wgmma``.  Both bindings raise when
 grad mode is on and an input requires a gradient: ``ops.FlashAttentionFn``
 is the differentiable op.
 """
@@ -40,16 +50,19 @@ import torch
 
 from ..build import check_launch, check_no_grad, check_tensor, library
 
-__all__ = ["LAUNCHES", "LAUNCHES_WGMMA", "BWD_LAUNCHES", "HEAD_DIMS", "KEY_TILE",
-           "flash_attention", "flash_attention_bwd", "plan", "wgmma_smem"]
+__all__ = ["LAUNCHES", "LAUNCHES_WGMMA", "BWD_LAUNCHES", "BWD_LAUNCHES_WGMMA",
+           "HEAD_DIMS", "KEY_TILE", "flash_attention", "flash_attention_bwd",
+           "bwd_passes", "plan", "plan_bwd", "wgmma_smem", "bwd_wgmma_smem"]
 
 #: kernel launches since the counter was last reset (``chip_smoke.py`` sets
 #: it to 0 before the main path and reads it after), and those of them on
 #: the ``wgmma`` path, as the library's entry reports it
 LAUNCHES = 0
 LAUNCHES_WGMMA = 0
-#: calls of the gradient kernel (three launches each)
+#: calls of the gradient kernel (three launches each), and those of them on
+#: the ``wgmma`` passes, as the library's entry reports it
 BWD_LAUNCHES = 0
+BWD_LAUNCHES_WGMMA = 0
 HEAD_DIMS = (32, 64, 128)
 #: keys per tile of the bfloat16 ``wgmma`` path: P is rounded to bfloat16
 #: against the running max at these tiles, so the plain version
@@ -59,6 +72,13 @@ KEY_TILE = 128
 #: ``wg::Cfg128``) sets it: head dim -> (consumer warpgroups of 64 query
 #: rows, beside one producer warpgroup; stages of the K/V ring)
 _WGMMA = {64: (3, 3), 128: (2, 2)}
+#: the gradient's ``wgmma`` passes as ``csrc/flash_attention_bwd.cu``
+#: (``wg::Bwd64``, ``wg::Bwd128``) sets them: head dim -> stages of the ring
+#: (two consumer warpgroups of 64 rows beside one producer warpgroup, 64-row
+#: streamed tiles)
+_BWD_WGMMA = {64: 4, 128: 3}
+#: the gradient's lse2 and D rows per head are padded to a multiple of this
+LSE_ALIGN = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,12 +106,39 @@ def plan(dtype: torch.dtype, d: int, s: int) -> dict:
             "stages": 1, "smem": smem, "blocks": -(-s // 64)}
 
 
+def plan_bwd(dtype: torch.dtype, d: int, s: int) -> dict:
+    """How the gradient kernel runs ``q`` [.., S, D] of ``dtype`` (S = T):
+    its path (``"wgmma"`` for bfloat16 at D 64/128, else ``"fma"``), rows
+    per block of each pass (keys in the dK/dV pass, query rows in the dQ
+    pass), rows per streamed tile, threads and dynamic shared memory of
+    each pass, blocks per KV head (``kv_blocks``) and per query head
+    (``q_blocks``), and the padded rows of lse2/D per head (``pitch``)."""
+    pitch = -(-s // LSE_ALIGN) * LSE_ALIGN
+    if dtype == torch.bfloat16 and d in _BWD_WGMMA:
+        stages = _BWD_WGMMA[d]
+        tile = 64 * d * 2                      # 64 rows x D in bf16
+        # 1,024 bytes to align the swizzled tiles, two resident operands of
+        # two warpgroups, the ring (two tiles and 64 lse2 + 64 D a stage),
+        # mbarriers
+        smem = 1024 + 2 * 2 * tile + stages * (2 * tile + 512) + 8 * (2 * stages + 1)
+        return {"path": "wgmma", "block": 128, "tile": 64, "threads": 384,
+                "stages": stages, "smem": smem, "smem_kv": smem, "smem_q": smem,
+                "kv_blocks": -(-s // 128), "q_blocks": -(-s // 128), "pitch": pitch}
+    # float32 tiles transposed at pitch 65: k, v, q, do and p, ds (dK/dV);
+    # q, do, k, v and ds (dQ); 64 lse2 and 64 D each
+    smem_kv = 4 * (4 * d * 65 + 2 * 64 * 65 + 128)
+    smem_q = 4 * (4 * d * 65 + 64 * 65 + 128)
+    return {"path": "fma", "block": 64, "tile": 64, "threads": 256, "stages": 1,
+            "smem": max(smem_kv, smem_q), "smem_kv": smem_kv, "smem_q": smem_q,
+            "kv_blocks": -(-s // 64), "q_blocks": -(-s // 64), "pitch": pitch}
+
+
 def _lib():
     lib = library("flash_attention")
     if not getattr(lib, "_spac_typed", False):
         for sfx in _SUFFIX.values():
             fn = getattr(lib, "flash_attention_" + sfx)
-            fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _I, _P, ctypes.POINTER(_I)]
             fn.restype = ctypes.c_int
         lib.flash_attention_wgmma_smem.argtypes = [_I]
@@ -107,8 +154,10 @@ def wgmma_smem(d: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the kernel on ``q``'s CUDA device."""
+                    causal: bool = True, window: int = 0,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on ``q``'s CUDA device; with ``lse`` (float32
+    [B, Hq, S]) it also writes each row's log-sum-exp there."""
     global LAUNCHES, LAUNCHES_WGMMA
     check_no_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
@@ -132,6 +181,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
                              "copies rows in 16-byte pieces)")
+    if lse is not None:
+        check_tensor(lse, "lse", torch.float32, (b, hq, s), q.device)
     o = torch.empty_like(q)
     if o.numel() == 0 or t == 0:
         return o
@@ -139,8 +190,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wgmma = _I(0)                       # the path the library launched
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-                  hkv, s, t, d, 1.0 / (d ** 0.5), int(causal), int(window), stream,
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  None if lse is None else lse.data_ptr(), b, hq, hkv, s, t, d,
+                  1.0 / (d ** 0.5), int(causal), int(window), stream,
                   ctypes.byref(wgmma))
     check_launch(code, "flash_attention")
     LAUNCHES += 1
@@ -153,18 +205,41 @@ def _lib_bwd():
     if not getattr(lib, "_spac_typed", False):
         for sfx in _SUFFIX.values():
             fn = getattr(lib, "flash_attention_bwd_" + sfx)
-            fn.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+            fn.argtypes = ([_P] * 10 + [_I] * 6 + [ctypes.c_float] + [_I] * 4
+                           + [_P, ctypes.POINTER(_I)])
             fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_wgmma_smem.argtypes = [_I]
+        lib.flash_attention_bwd_wgmma_smem.restype = ctypes.c_int
         lib._spac_typed = True
     return lib
 
 
+def bwd_wgmma_smem(d: int) -> int:
+    """The gradient's ``wgmma`` passes' dynamic shared memory at head dim
+    ``d`` as the built kernel sets it (builds the library; ``plan_bwd``
+    must agree)."""
+    return int(_lib_bwd().flash_attention_bwd_wgmma_smem(d))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, lse: torch.Tensor | None = None):
     """Launch the gradient kernel on ``q``'s CUDA device: (dq, dk, dv) of
-    ``flash_attention(q, k, v)`` = ``o`` for the incoming gradient ``do``."""
-    global BWD_LAUNCHES
+    ``flash_attention(q, k, v)`` = ``o`` for the incoming gradient ``do``,
+    from the forward's log-sum-exp ``lse`` (float32 [B, Hq, S]; without it
+    the forward kernel is launched once more to write it)."""
+    return bwd_passes(q, k, v, o, do, causal=causal, window=window, lse=lse)
+
+
+def bwd_passes(q, k, v, o, do, *, causal: bool = True, window: int = 0, lse=None,
+               passes: int = 7, scratch: torch.Tensor | None = None):
+    """``flash_attention_bwd``'s launches, or some of them alone (``passes``:
+    1 the pre-pass, 2 the dK/dV pass, 4 the dQ pass; 7 the gradient) on
+    ``scratch`` (float32 [2, B·Hq·pitch], ``plan_bwd``'s pitch: lse2 and D,
+    which the pre-pass writes and the other two read), for timing one launch
+    alone.  Returns (dq, dk, dv); only the outputs of the passes run are
+    written."""
+    global BWD_LAUNCHES, BWD_LAUNCHES_WGMMA
     check_no_grad("flash_attention_bwd", q, k, v, o, do)
     if q.device.type != "cuda":
         raise ValueError(f"q is on {q.device}: the attention gradient kernel takes "
@@ -186,16 +261,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ("v", v, (b, hkv, t, d)), ("o", o, (b, hq, s, d)),
                            ("do", do, (b, hq, s, d))):
         check_tensor(x, name, q.dtype, shape, q.device)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
+                             "reads rows in 16-byte pieces)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    scratch = torch.empty((2, b * hq * s), dtype=torch.float32, device=q.device)
+    if lse is None:
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    check_tensor(lse, "lse", torch.float32, (b, hq, s), q.device)
+    pitch = plan_bwd(q.dtype, d, s)["pitch"]
+    if scratch is None:
+        scratch = torch.empty((2, b * hq * pitch), dtype=torch.float32, device=q.device)
+    check_tensor(scratch, "scratch", torch.float32, (2, b * hq * pitch), q.device)
     fn = getattr(_lib_bwd(), "flash_attention_bwd_" + _SUFFIX[q.dtype])
+    wgmma = _I(0)                       # the path the library launched
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, hq,
-                  hkv, s, t, d, 1.0 / (d ** 0.5), int(causal), int(window), stream)
+                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  scratch.data_ptr(), b, hq, hkv, s, t, d, 1.0 / (d ** 0.5), int(causal),
+                  int(window), pitch, int(passes), stream, ctypes.byref(wgmma))
     check_launch(code, "flash_attention_bwd")
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_WGMMA += wgmma.value
     return dq, dk, dv

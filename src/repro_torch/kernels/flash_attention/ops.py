@@ -21,22 +21,25 @@ __all__ = ["FlashAttentionFn", "flash_attention", "attention_reference"]
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Attention on the card with its gradient: the forward kernel, and the
-    gradient kernel from the saved q, k, v and output (no log-sum-exp is
-    kept: the gradient kernel recomputes it)."""
+    """Attention on the card with its gradient: the forward kernel, which
+    also writes each row's log-sum-exp, and the gradient kernel from the
+    saved q, k, v, output and log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        o = kernel.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        b, hq, s, _ = q.shape
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        o = kernel.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, do.to(q.dtype).contiguous(),
-                                                causal=ctx.causal, window=ctx.window)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, _aligned(do.to(q.dtype)),
+                                                causal=ctx.causal, window=ctx.window,
+                                                lse=lse)
         return dq, dk, dv, None, None
 
 

@@ -10,6 +10,9 @@ the optional sliding window, an online softmax over key blocks, P rounded
 to the input dtype before the PV product, float32 accumulation — with GQA
 by indexing.  It takes any S and T (a ragged last block is shorter).  The
 CPU runs it, and ``chip_smoke.py`` holds the kernel against it on the card.
+With ``return_lse=True`` it also gives each row's log-sum-exp of its
+scaled scores, ``m + ln l`` from the online softmax: the plain counterpart
+of what the kernel writes for the gradient.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def blockwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, block_q: int = 512,
-                  block_k: int = 1024) -> torch.Tensor:
-    """q [B, Hq, S, D], k/v [B, Hkv, T, D] -> [B, Hq, S, D] (q's dtype)."""
+                  block_k: int = 1024, return_lse: bool = False):
+    """q [B, Hq, S, D], k/v [B, Hkv, T, D] -> [B, Hq, S, D] (q's dtype),
+    and with ``return_lse`` also the log-sum-exp [B, Hq, S] (float32)."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -49,7 +53,7 @@ def blockwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     q5 = q.reshape(b, hkv, rep, s, hd)
     kf, vf = k.float(), v.float()
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, s, bq):
         qi = q5[:, :, :, q0:q0 + bq].float()          # [b, hkv, rep, nq, hd]
         nq = qi.shape[3]
@@ -73,4 +77,8 @@ def blockwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                              p.to(q.dtype).float(), vs)
             m = m_new
         outs.append((acc / l.clamp_min(1e-30)).to(q.dtype))
-    return torch.cat(outs, dim=3).reshape(b, h, s, hd)
+        lses.append((m + torch.log(l))[..., 0])
+    o = torch.cat(outs, dim=3).reshape(b, h, s, hd)
+    if return_lse:
+        return o, torch.cat(lses, dim=3).reshape(b, h, s)
+    return o

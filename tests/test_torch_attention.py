@@ -20,10 +20,21 @@ Contract, on the CPU with the plain PyTorch versions, on inputs made with
   ``chip_smoke.FLASH_FORMS`` and each of the 10 configs takes, and that its
   shared memory fits; ``blockwise_ref`` at the ``wgmma`` path's key tile
   (``KEY_TILE``) against the Pallas kernel and the XLA twin; and
-  ``chip_smoke.FLASH_TILE == KEY_TILE``.
+  ``chip_smoke.FLASH_TILE == KEY_TILE``;
+- the gradient: autograd of the plain version against ``jax.grad`` of the
+  reference; the log-sum-exp the forward writes for it (its plain
+  counterpart, ``blockwise_ref(..., return_lse=True)``) against
+  ``torch.logsumexp`` at 1e-6 of max(1, |lse|); the bfloat16 ``wgmma``
+  scheme (P and dS rounded to bfloat16 before the products that take them,
+  float32 sums, the forward's lse) emulated in plain PyTorch on
+  ``chip_smoke.FLASH_BWD_FORMS``' bfloat16 forms at S <= 1,000, inside
+  ``FLASH_BWD_TOL`` against autograd of the plain version and within 2e-2
+  of the largest entry of the float32 one; and ``plan_bwd`` for every
+  gradient form and config (path, shared memory, blocks covering S).
 
-The CUDA kernel runs only on a card: the ``cuda``-marked test skips here
-(``python3 chip_smoke.py`` holds it against the plain version on the card).
+The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
+(``python3 chip_smoke.py`` holds them against the plain versions on the
+card, the gradient's 64-seed sweep included).
 """
 
 import dataclasses
@@ -505,3 +516,141 @@ def test_cuda_bwd_kernel_vs_plain(dtype):
         want = cs._attn_plain_grads(q, k, v, do, window,
                                     fa_kernel.KEY_TILE if dtype == "bf16" else 1024)
         assert cs._grad_share(got, want, *cs.FLASH_BWD_TOL[dtype]) <= 1.0, (dtype, s)
+
+
+# --------------------------------------------------------------------------
+# the gradient's wgmma scheme, its log-sum-exp input and its launch plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,d,window,hq,hkv,block_k", [
+    (200, 64, 0, 4, 2, 128), (300, 128, 64, 8, 2, 128), (130, 32, 0, 4, 1, 64),
+    (257, 64, 100, 4, 4, 1024)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_forward_lse_is_the_logsumexp(s, d, window, hq, hkv, block_k, dt):
+    """The log-sum-exp the forward writes for the gradient (the plain
+    counterpart, m + ln l of the online softmax) equals torch.logsumexp of
+    the masked scaled scores within 1e-6 of max(1, |lse|), and the output
+    is the same with or without it."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    q, k, v = (_t(a, dtype) for a in _qkv(1, hq, hkv, s, s, d, seed=s + d))
+    o, lse = fa.blockwise_ref(q, k, v, causal=True, window=window, block_k=block_k,
+                              return_lse=True)
+    assert torch.equal(o, fa.blockwise_ref(q, k, v, causal=True, window=window,
+                                           block_k=block_k))
+    kr = k.float().repeat_interleave(hq // hkv, dim=1)
+    sc = torch.einsum("bhsd,bhtd->bhst", q.float(), kr) * (1.0 / d ** 0.5)
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    masked = (i < j) | ((i - j >= window) if window else torch.zeros_like(i < j))
+    want = torch.logsumexp(sc.masked_fill(masked, -1e30), dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (1, hq, s)
+    assert float(((lse - want).abs() / want.abs().clamp_min(1.0)).max()) <= 1e-6
+
+
+def _emulate_wgmma_grad(q, k, v, do, window):
+    """The bfloat16 gradient as the wgmma passes compute it, in plain
+    PyTorch: the forward's lse (m and l of the online softmax at
+    ``KEY_TILE``), D = do.o from the bfloat16 forward output, P =
+    2^(s c - lse log2 e) and dS = P (dP - D) in float32, P and dS rounded
+    to bfloat16 before dV = P^T.dO, dK = dS^T.Q and dQ = dS.K (float32
+    sums), each output rounded to bfloat16 once.  One KV head's group at a
+    time."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    o, lse = fa.blockwise_ref(q, k, v, causal=True, window=window,
+                              block_k=fa_kernel.KEY_TILE, return_lse=True)
+    scale = 1.0 / d ** 0.5
+    c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    lse2 = lse * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    delta = (do.float() * o.float()).sum(-1)
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    visible = (j <= i) & ((i - j < window) if window else torch.ones_like(j <= i))
+    dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32) for x in (q, k, v))
+    bf = lambda x: x.to(torch.bfloat16).float()                   # noqa: E731
+    for g in range(hkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        qg, dog = q[:, hs].float(), do[:, hs].float()
+        kg, vg = k[:, g:g + 1].float(), v[:, g:g + 1].float()
+        sc = torch.einsum("bhsd,bhtd->bhst", qg, kg.expand(-1, rep, -1, -1))
+        p = torch.exp2(sc * c - lse2[:, hs, :, None]).masked_fill(~visible, 0.0)
+        dp = torch.einsum("bhsd,bhtd->bhst", dog, vg.expand(-1, rep, -1, -1))
+        ds = p * (dp - delta[:, hs, :, None])
+        dv[:, g] = torch.einsum("bhst,bhsd->btd", bf(p), dog)
+        dk[:, g] = torch.einsum("bhst,bhsd->btd", bf(ds), qg) * scale
+        dq[:, hs] = torch.einsum("bhst,bhtd->bhsd", bf(ds),
+                                 kg.expand(-1, rep, -1, -1)) * scale
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+_BF16_BWD_FORMS = [f for f in _chip_smoke().FLASH_BWD_FORMS if f[8] == "bf16"]
+
+
+@pytest.mark.parametrize("form", _BF16_BWD_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_wgmma_grad_scheme_within_the_bars(form):
+    """The bfloat16 wgmma gradient's precision scheme, emulated on the CPU
+    on chip_smoke.py's bfloat16 gradient forms (S cut to 1,000 where it is
+    longer, heads, head dim and window kept): inside FLASH_BWD_TOL against
+    autograd of the plain version in bfloat16 at KEY_TILE, and within 2e-2
+    of the largest entry of the plain version in float32."""
+    cs = _chip_smoke()
+    _, _, b, hq, hkv, s, d, window, _ = form
+    s = min(s, 1000)
+    rng = np.random.default_rng(s + hq + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d)))
+    got = _emulate_wgmma_grad(q, k, v, do, window)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    want = cs._attn_plain_grads(q, k, v, do, window, fa_kernel.KEY_TILE)
+    assert cs._grad_share(got, want, *cs.FLASH_BWD_TOL["bf16"]) <= 1.0
+    f32 = cs._attn_plain_grads(q.float(), k.float(), v.float(), do.float(), window, 1024)
+    assert cs._grad_share(got, f32, 2e-2, 0.0) <= 1.0
+
+
+def _check_plan_bwd(dtype, d, s):
+    plan = fa_kernel.plan_bwd(dtype, d, s)
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    assert plan["path"] == ("wgmma" if wgmma else "fma")
+    assert 0 < plan["smem_kv"] <= MAX_SMEM_BYTES and 0 < plan["smem_q"] <= MAX_SMEM_BYTES
+    # the blocks of each pass cover every key (dK/dV) and query row (dQ)
+    for n in (plan["kv_blocks"], plan["q_blocks"]):
+        assert n * plan["block"] >= s > (n - 1) * plan["block"]
+    assert plan["block"] % plan["tile"] == 0
+    # lse2 and D rows padded to a multiple of every tile and block
+    assert plan["pitch"] >= s and plan["pitch"] % plan["block"] == 0
+    assert plan["smem"] == max(plan["smem_kv"], plan["smem_q"])
+    if wgmma:           # a producer warpgroup and two consumers of 64 rows
+        assert plan["threads"] == 384 and plan["block"] == 128 and plan["stages"] >= 2
+    return plan
+
+
+@pytest.mark.parametrize("form", _chip_smoke().FLASH_BWD_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_plan_bwd_of_chip_smoke_forms(form):
+    _, _, b, hq, hkv, s, d, window, dt = form
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    _check_plan_bwd(dtype, d, s)
+
+
+@pytest.mark.parametrize("name", all_arch_names())
+def test_plan_bwd_of_configs(name):
+    """Every config's attention gradient (bfloat16, its head dim) takes the
+    wgmma passes at full width and the FMA passes at smoke width (D 32), at
+    its training length and a ragged one."""
+    for cfg, path in ((get_config(name), "wgmma"), (get_smoke(name), "fma")):
+        for s in (8192, 1000):
+            assert _check_plan_bwd(torch.bfloat16, cfg.hd, s)["path"] == path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", _chip_smoke().FLASH_BWD_SEED_FORMS, ids=lambda f: f[0])
+def test_cuda_bf16_bwd_bar_over_seeds(form):
+    """The bfloat16 gradient (the wgmma passes) against autograd of the
+    plain version at KEY_TILE over chip_smoke.py's 64 seeds, each (inputs,
+    incoming gradient) pair inside FLASH_BWD_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    for seed in cs.FLASH_BWD_SEEDS:
+        share = cs.flash_bwd_seed_share(form, seed, dev)
+        assert share["bar_share"] <= 1.0 and share["wgmma"], (form[0], seed, share)

@@ -11,6 +11,7 @@ bitwise, over a matrix of shapes.
     python3 tests/torch_scan_ab.py --parts parser_plans    # the parser's tiles
     python3 tests/torch_scan_ab.py --parts ring            # the ring-scan engine
     python3 tests/torch_scan_ab.py --parts alone           # launch_ms vs torch.profiler
+    python3 tests/torch_scan_ab.py --parts flash_bwd       # the attention gradient
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -51,6 +52,13 @@ the parser at hft's and Ethernet/IPv4/UDP's 9,600 and 1,048,576 headers,
 ``switch_loop`` at hft's rung-4 champion, the ring scan at hft) by
 ``chip_smoke.launch_ms`` and by a ``torch.profiler`` window of the same
 calls in the same process, to hold the one against the other.
+``flash_bwd`` (not in the default parts): the attention gradient at
+``chip_smoke.py``'s bfloat16 ``FLASH_BWD_FORMS`` (llama3.2-1b's training
+shape first), a call (``ms``) and the kernel alone (``kernel_ms``), and,
+where the tree has ``kernel.bwd_passes``, each of its three launches
+alone (``pre_ms``, ``kv_ms``, ``q_ms``); and the forward kernel alone at
+llama3.2-1b's prefill without and, where the tree takes it, with the
+log-sum-exp buffer (``fwd_kernel_ms``, ``fwd_lse_kernel_ms``).
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
@@ -304,6 +312,45 @@ def time_flash(torch, dev, reps):
             q, k, v, is_causal=True, enable_gqa=True), reps)}), flush=True)
 
 
+def time_flash_bwd(torch, dev, reps):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    b, hq, hkv, s, d = 4, 32, 8, 8192, 64            # chip_smoke.py's llama_prefill
+    q, k, v = CS._attn_inputs(b, hq, hkv, s, d, dev, torch.bfloat16, seed=s + hq)
+    rec = {"form": "flash_llama_prefill",
+           "fwd_kernel_ms": CS.launch_ms(lambda: fk.flash_attention(q, k, v, causal=True),
+                                         reps)}
+    if hasattr(fk, "plan_bwd"):
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        rec["fwd_lse_kernel_ms"] = CS.launch_ms(
+            lambda: fk.flash_attention(q, k, v, causal=True, lse=lse), reps)
+    print(json.dumps(rec), flush=True)
+    del q, k, v
+    for form, shape, b, hq, hkv, s, d, window, dt in CS.FLASH_BWD_FORMS:
+        if dt != "bf16":
+            continue
+        q, k, v = CS._attn_inputs(b, hq, hkv, s, d, dev, torch.bfloat16, seed=s + hq + 1)
+        do = torch.randn(q.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(s)).bfloat16()
+        kw = dict(causal=True, window=window)
+        rec = {"form": f"flash_bwd_{form}", "shape": shape}
+        if hasattr(fk, "bwd_passes"):
+            lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+            o = fk.flash_attention(q, k, v, lse=lse, **kw)
+            kw["lse"] = lse
+            scratch = torch.empty((2, b * hq * fk.plan_bwd(q.dtype, d, s)["pitch"]),
+                                  dtype=torch.float32, device=dev)
+            for name, passes in (("pre", 1), ("kv", 2), ("q", 4)):
+                rec[f"{name}_ms"] = CS.launch_ms(lambda p=passes: fk.bwd_passes(
+                    q, k, v, o, do, passes=p, scratch=scratch, **kw), reps)
+        else:
+            o = fk.flash_attention(q, k, v, **kw)
+        call = lambda: fk.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
+        rec.update({"ms": cuda_ms(torch, call, reps), "kernel_ms": CS.launch_ms(call, reps)})
+        print(json.dumps(rec), flush=True)
+        del q, k, v, do, o
+        torch.cuda.empty_cache()
+
+
 def profiler_ms(torch, fn, name, reps):
     """Device time per call of the kernels whose names hold ``name``, in one
     torch.profiler window, and the records it kept."""
@@ -363,7 +410,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parts", default="scans,flash,parser,switch",
                     help="comma-separated subset of scans, flash, parser, switch, "
-                         "parser_plans, ring, alone")
+                         "parser_plans, ring, alone, flash_bwd")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import torch
@@ -390,6 +437,8 @@ def main(argv=None):
         time_ring(torch, dev, args.reps)
     if "alone" in parts:
         time_alone(torch, dev, args.reps)
+    if "flash_bwd" in parts:
+        time_flash_bwd(torch, dev, args.reps)
     return 0 if ok else 1
 
 
