@@ -56,8 +56,9 @@ final ``{"ok": true, ...}`` line:
            bfloat16 gradient over 64 seeds at four small forms (D 64 and
            128, a window, ragged lengths), every pair inside the bar;
            SSD_BWD_FORMS: mamba2-780m's [48, 8192, 64, 128] and a ragged
-           length, float32 and bfloat16 x/B/C), each with ms per call,
-           kernel alone and its bound; the ring-scan stage-4
+           length, float32 and bfloat16 x/B/C, bfloat16 x, B and C on the
+           wgmma path, each launch timed alone, two calls bitwise equal),
+           each with ms per call, kernel alone and its bound; the ring-scan stage-4
            kernel (end and admit bitwise) at hft's and datacenter's shapes,
            64 ports (the k=8 fat-tree's edge tier flattened) and 300, at
            depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
@@ -146,11 +147,12 @@ final ``{"ok": true, ...}`` line:
            lr 3e-4 with a warmup of 2, one SyntheticLM sequence of 8,192
            tokens a step, 6 steps each: every loss finite and the last
            below the first, every parameter's step-0 gradient finite and
-           non-zero somewhere, flash_attention_bwd 16 (all on its wgmma
-           passes) and ssd_scan_bwd 48 launches a step (the forward
-           kernels 32 and 96: remat's recompute); step wall, tokens/s, the
-           kernels' and the gradients' share (CUDA events), peak memory;
-           then one AdamW step at 2 layers, full width, 1 x 1,024 tokens
+           non-zero somewhere, flash_attention_bwd 16 and ssd_scan_bwd 48
+           calls a step, all on their wgmma paths (the forward kernels 32
+           and 96: remat's recompute); step wall, tokens/s, the kernels'
+           and the gradients' share (CUDA events), peak memory; one more
+           mamba2-780m step under torch.profiler, its top device
+           operations outside the SSD kernels; then one AdamW step at 2 layers, full width, 1 x 1,024 tokens
            in float32 against the JAX package's
            in tests/torch_golden/train_{llama,mamba} (loss, gradient
            norms, gradient and updated-parameter slices).
@@ -1607,10 +1609,40 @@ SSD_BWD_FORMS = (("x_bf16_bc_bf16", "mamba_train", 48, 48, 8192, 64, 128, 128, "
 SSD_BWD_TOL = {"f32": (2e-3, 2e-3), "bf16": (1e-2, 2 ** -7)}
 
 
+def _ssd_bwd_executed_flop(bh, groups, s, p, n):
+    """The products the gradient's wgmma path runs (csrc/ssd_bwd.cu), at
+    its 64-step chunk: per (chunk, head) the deltas (x o w)^T.B and (gy o
+    exp(cum))^T.C, gy.x^T and x.gy^T, W.B, W^T.C, (x o w).E and (gy o
+    exp(cum)).S, B.E^T, C.S^T and A^T.gy; per (chunk, group) C.B^T and
+    B.C^T.  Not the function's least work: the executed rate."""
+    nc, L = -(-s // 64), 64
+    per_head = 2 * (2 * p * n * L + 2 * L * L * p + 4 * L * n * p + 2 * L * p * n + L * L * p)
+    return nc * (bh * per_head + groups * 2 * 2 * L * L * n)
+
+
+def _ssd_bwd_ptxas():
+    """``ptxas -v``'s registers and spills for each of the SSD gradient's
+    wgmma-path kernels (csrc/ssd_bwd.cu)."""
+    from repro_torch.kernels.build import _target, library
+    library("ssd_bwd")
+    log = _target("ssd_bwd").with_suffix(".log")
+    if not log.exists():
+        return None
+    text = log.read_text()
+    return {k: _ptxas_entry(text, k) for k in ("ssd_bwd_delta", "ssd_bwd_scan",
+                                               "ssd_bwd_chunk_wg", "ssd_bwd_da")}
+
+
 def kernels_ssd_bwd(dev, stats):
     """The SSD gradient kernel against autograd of its plain version on the
     card (float32, on the same inputs), per SSD_BWD_FORMS at SSD_BWD_TOL:
-    dx, d(dt), da, dB, dC; ms per call, kernel alone, the bytes bound."""
+    dx, d(dt), da, dB, dC; x, B and C in bfloat16 at P 64, N 128 must run
+    on the wgmma path and every other form on the FMA path (``plan_bwd``
+    and the library's report, BWD_LAUNCHES_WGMMA); two calls on the same
+    inputs must give bitwise-equal outputs.  ms per call, kernel alone,
+    each launch alone (``<launch>_ms``, the names ``plan_bwd`` gives), the
+    function's TFLOP/s and, on the wgmma path, the executed products'
+    (``tflops_executed``), the bytes bound, the scratch's MB."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
@@ -1624,10 +1656,21 @@ def kernels_ssd_bwd(dev, stats):
         dy = (torch.randn((bh, s, p), device=dev,
                           generator=torch.Generator(dev).manual_seed(s)) * 0.1).to(xd)
         kern = lambda: sk.ssd_scan_bwd(x, dt, a, b, c, dy)  # noqa: E731
-        n0 = sk.BWD_LAUNCHES
+        g_rows = bh // heads
+        plan = sk.plan_bwd(xd, bd, p, n, s, bh=bh, groups=g_rows)
+        wgmma = xt == "bf16" and bct == "bf16" and (p, n) == (64, 128)
+        assert plan["path"] == ("wgmma" if wgmma else "fma"), (form, plan["path"])
+        n0, w0 = sk.BWD_LAUNCHES, sk.BWD_LAUNCHES_WGMMA
         got = kern()
+        again = kern()
         torch.cuda.synchronize()
-        assert sk.BWD_LAUNCHES == n0 + 1, "ssd_scan_bwd did not launch"
+        assert sk.BWD_LAUNCHES == n0 + 2, "ssd_scan_bwd did not launch"
+        assert sk.BWD_LAUNCHES_WGMMA == w0 + 2 * wgmma, f"{form} {shape} took the wrong path"
+        if wgmma:
+            for name in ("delta", "chunk"):
+                assert sk.bwd_wgmma_smem(name) == plan["smem"][name], (name, plan["smem"])
+        repeat = all(bool(torch.equal(g, h)) for g, h in zip(got, again))
+        del again
 
         def plain():
             leaves = [t.detach().float().clone().requires_grad_(True)
@@ -1646,13 +1689,14 @@ def kernels_ssd_bwd(dev, stats):
         names = ("dx", "ddt", "da", "db", "dc")
         shares = {nm: _grad_share([g], [w], *tol) for nm, g, w in zip(names, got, want)}
         rec = {"kernel": "ssd_scan_bwd", "form": form, "shape": shape, "BH": bh, "S": s,
-               "P": p, "N": n, "shares": shares, "bar_share": max(shares.values()),
+               "P": p, "N": n, "path": plan["path"], "launches_a_call": list(plan["launches"]),
+               "shares": shares, "bar_share": max(shares.values()),
+               "bitwise_repeat": repeat,
                "max_abs_err": max(float((g.float() - w).abs().max())
                                   for g, w in zip(got, want)),
                "finite": all(bool(torch.isfinite(g).all()) for g in got)}
-        good = rec["finite"] and rec["bar_share"] <= 1.0
+        good = rec["finite"] and rec["bar_share"] <= 1.0 and repeat
         xi, bi = x.element_size(), b.element_size()
-        g_rows = bh // heads
         # x, dy read and dx written in x's dtype; dt read and ddt written,
         # a read and da written in float32; B, C read and dB, dC written
         moved = 3 * bh * s * p * xi + 2 * bh * s * 4 + 2 * bh * 4 + 4 * g_rows * s * n * bi
@@ -1660,8 +1704,21 @@ def kernels_ssd_bwd(dev, stats):
         bound, by = _bound(moved, flops, 2)
         rec.update({"within_tolerance": good, "ms": cuda_ms(kern, reps=3),
                     "kernel_ms": launch_ms(kern, reps=3), "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": None,
-                    "scratch_mb": sk.bwd_scratch_floats(bh, s, p, n) * 4 / 2 ** 20})
+                    "bound_ms": bound, "bound_by": by, "library_ms": None, "flop": flops,
+                    "scratch_mb": sk.bwd_scratch_floats(bh, s, p, n, xd, bd) * 4 / 2 ** 20})
+        rec["tflops"] = flops / (rec["kernel_ms"] * 1e-3) / 1e12
+        if wgmma:
+            rec["flop_executed"] = _ssd_bwd_executed_flop(bh, g_rows, s, p, n)
+            rec["tflops_executed"] = rec["flop_executed"] / (rec["kernel_ms"] * 1e-3) / 1e12
+            rec["ptxas"] = _ssd_bwd_ptxas()
+        # each launch alone, on one scratch that a whole call fills first
+        scratch = torch.empty(sk.bwd_scratch_floats(bh, s, p, n, xd, bd), dtype=torch.float32,
+                              device=dev)
+        sk.bwd_passes(x, dt, a, b, c, dy, scratch=scratch)
+        for i, name in enumerate(plan["launches"]):
+            rec[f"{name}_ms"] = launch_ms(lambda m=1 << i: sk.bwd_passes(  # noqa: B023
+                x, dt, a, b, c, dy, passes=m, scratch=scratch), reps=3)
+        del scratch
         stats["forms"].append(rec)
         say("kernels", **rec)
         ok &= good
@@ -1825,7 +1882,8 @@ def _counters():
             "flash_attention_bwd": (fk, "BWD_LAUNCHES"),
             "flash_attention_bwd_wgmma": (fk, "BWD_LAUNCHES_WGMMA"),
             "ssd_scan": (sk, "LAUNCHES"),
-            "ssd_scan_bwd": (sk, "BWD_LAUNCHES")}
+            "ssd_scan_bwd": (sk, "BWD_LAUNCHES"),
+            "ssd_scan_bwd_wgmma": (sk, "BWD_LAUNCHES_WGMMA")}
 
 
 def _reset_counters():
@@ -2718,10 +2776,12 @@ def path_train(dev, stats):
     loss finite and the last below the first, every parameter's gradient
     in step 0 finite and non-zero somewhere, flash_attention_bwd launched
     once per attention layer (every call on its wgmma passes) and
-    ssd_scan_bwd once per SSM layer each step (the forward kernels twice:
-    the forward and remat's recompute), with the gradients' share of the
-    step (CUDA events); then the 2-layer fixtures against the reference's
-    train step."""
+    ssd_scan_bwd once per SSM layer each step, every call on its wgmma path
+    (the forward kernels twice: the forward and remat's recompute), with
+    the gradients' share of the step (CUDA events); one more mamba2-780m
+    step under torch.profiler (``_train_step_profile``: the device
+    operations outside the SSD kernels); then the 2-layer fixtures against
+    the reference's train step."""
     import torch
     from repro_torch import convert
     from repro_torch.configs import get_config
@@ -2766,10 +2826,13 @@ def path_train(dev, stats):
             step = make_train_step(cfg, PLAN, None, opt,
                                    TrainSpec(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS))
             state = opt.init(params)
-            # llama's gradient calls all on the wgmma passes (bf16, D 64)
+            # every gradient call on its wgmma path (bf16: llama's D 64,
+            # mamba's P 64, N 128)
             want = ({"flash_attention_bwd": layers, "flash_attention_bwd_wgmma": layers,
                      "flash_attention": 2 * layers}
-                    if cfg.has_attention else {"ssd_scan_bwd": layers, "ssd_scan": 2 * layers})
+                    if cfg.has_attention else {"ssd_scan_bwd": layers,
+                                               "ssd_scan_bwd_wgmma": layers,
+                                               "ssd_scan": 2 * layers})
             losses = []
             for i in range(TRAIN_STEPS):
                 batch = data.batch(i)
@@ -2803,6 +2866,12 @@ def path_train(dev, stats):
                     failures.append(f"{arch} train step {i}")
             if not losses[-1] < losses[0]:
                 failures.append(f"{arch} loss did not fall: {losses}")
+            if not cfg.has_attention:
+                rec = _train_step_profile(step, params, state, data.batch(TRAIN_STEPS),
+                                          TRAIN_STEPS, dev)
+                rec["train"] = f"{arch} profiled step"
+                stats["train"].append(rec)
+                say("path", **rec)
             del params, state
             torch.cuda.empty_cache()
         for stem, arch in TRAIN_FIXTURES.items():
@@ -2810,9 +2879,44 @@ def path_train(dev, stats):
     finally:
         undo()
     stats["launches"].update({k: totals.get(k, 0) for k in (
-        "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan_bwd")})
+        "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan_bwd",
+        "ssd_scan_bwd_wgmma")})
     say("path", path="train", launches=totals, seconds=time.perf_counter() - t_path)
     return failures
+
+
+#: device operations a profiled training step lists, outside the SSD kernels
+PROFILE_TOP = 15
+
+
+def _train_step_profile(step, params, state, batch, i, dev):
+    """One more training step (after the warm steps) under torch.profiler:
+    its wall, the device time summed over its kernels, the SSD kernels'
+    share (names holding ``ssd``), and the PROFILE_TOP device operations
+    outside them by device time (ms, calls, share of the device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch, i)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    total = sum(ms for _, ms, _ in rows)
+    ssd = sum(ms for k, ms, _ in rows if "ssd" in k)
+    rest = sorted((r for r in rows if "ssd" not in r[0]), key=lambda r: -r[1])
+    return {"wall_s": wall, "device_ms": total, "ssd_ms": ssd,
+            "ssd_share": ssd / total if total else None,
+            "top_outside_ssd": [{"op": k[:120], "ms": ms, "calls": n,
+                                 "share": ms / total if total else None}
+                                for k, ms, n in rest[:PROFILE_TOP]]}
 
 
 def _fixture_slice(a):

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by csrc/flash_attention.cu (the forward's
-// wgmma path) and csrc/flash_attention_bwd.cu (the gradient's wgmma
-// passes): mbarriers, TMA loads, shared-memory matrix descriptors of
+// wgmma path), csrc/flash_attention_bwd.cu (the gradient's wgmma passes)
+// and csrc/ssd_bwd.cu (the SSD gradient's wgmma path): mbarriers, TMA loads, shared-memory matrix descriptors of
 // 128-byte-swizzled tiles, the wgmma wrappers, the packing of float
 // accumulators into bf16 A fragments, and the driver entry point that
 // encodes a tensor map.
@@ -128,6 +128,27 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// the same for packed bf16 A fragments
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(d[i][j]) :: "memory");
+}
+
+// the threads' shared-memory writes become visible to wgmma's and TMA's
+// (asynchronous) accesses
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of bf16 element (r, c), c < 64, in a 128-byte-swizzled chunk
+// (the 16-byte group c / 8 XOR row mod 8; a row keeps its 128 bytes)
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return uint32_t(r * CHUNK_ROW + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1));
+}
+
 // Shared-memory matrix descriptor of a tile stored in 128-byte-swizzled
 // chunks: start address >> 4 in bits 0-13, leading byte offset >> 4 in
 // 16-29, stride byte offset >> 4 in 32-45, the 128-byte swizzle (1) in bits
@@ -208,6 +229,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] . B[16 x 128], both from shared memory: A K-major (TA
+// 0) or MN-major (1, one 64-column chunk wide), B K-major (TB 0) or
+// MN-major (1, its two 64-column chunks the descriptor's leading byte
+// offset apart); scale_d = 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_sst(float (&d)[64], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d += A[64 x 16] . B[16 x 64]: A from registers (bf16 pairs), B from

@@ -41,7 +41,13 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, dt, a, b, c = ctx.saved_tensors
-        return kernel.ssd_scan_bwd(x, dt, a, b, c, dy.to(x.dtype).contiguous())
+        return kernel.ssd_scan_bwd(x, dt, a, b, c, _aligned(dy.to(x.dtype).contiguous()))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it does not start on a 16-byte boundary
+    (TMA reads x, the incoming gradient, B and C)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _per_head(t: torch.Tensor, bh: int) -> torch.Tensor:
@@ -61,11 +67,8 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, return_state: bool = False)
     f32 = torch.float32
     if not (b.dtype == c.dtype and b.dtype in (f32, torch.bfloat16)):
         b, c = b.to(f32), c.to(f32)
-    x = x.contiguous()
-    if x.data_ptr() % 16:                   # TMA reads x from a 16-byte boundary
-        x = x.clone()
-    dt, a, b, c = (dt.to(f32).contiguous(), a.to(f32).contiguous(), b.contiguous(),
-                   c.contiguous())
+    x, b, c = _aligned(x.contiguous()), _aligned(b.contiguous()), _aligned(c.contiguous())
+    dt, a = dt.to(f32).contiguous(), a.to(f32).contiguous()
     if return_state:
         return kernel.ssd_scan(x, dt, a, b, c, return_state=True)
     return SSDScanFn.apply(x, dt, a, b, c)

@@ -462,70 +462,90 @@ def test_chunked_grads_finite_where_reference_overflows():
                                    err_msg=name)
 
 
-def _emulate_bwd(x, dt, a, b, c, dy, hpg, L=64):
-    """``csrc/ssd_bwd.cu``'s scheme in float64: the chunk-start states S_c
-    and the reverse carries E_c, then each chunk's terms (A, W, Q, u, the
-    E/S halves of dB and dC, dcum and its reverse scan), per head, and dB,
-    dC summed over each group's heads.  Inputs [BH, S, ..] float64 tensors,
-    b/c [G, S, N]."""
+def _emulate_bwd(x, dt, a, b, c, dy, hpg, L=64, round_bf16=False):
+    """``csrc/ssd_bwd.cu``'s wgmma scheme in float64: each chunk's local
+    state deltas dS_c = (x o w)^T B and dE_c = (gy o exp(cum))^T C
+    (``ssd_bwd_delta``), the chains over chunks that turn them into the
+    chunk-start states S_c and reverse carries E_c (``ssd_bwd_scan``), then
+    a walk per (chunk, group) over the group's heads in order, dB and dC
+    summed as it goes (``ssd_bwd_chunk_wg``): C.B^T once, W and Q from
+    gy.x^T, U from B.E^T, u = f o B.E^T + A^T.gy, T from C.S^T, dcum's sums
+    and its reverse scan, and da summed over a head's chunks
+    (``ssd_bwd_da``).  With ``round_bf16`` the operands the kernel rounds
+    to bfloat16 once are rounded (x o w, gy o exp(cum), A, W, dS_c, dE_c,
+    S_c, E_c; ``kernel.plan_bwd``'s ``rounded_to_bf16``).  Inputs
+    [BH, S, ..] float64 tensors, b/c [G, S, N]."""
+    rnd = (lambda t: t.to(torch.bfloat16).double()) if round_bf16 else (lambda t: t)
     bh, s, p = x.shape
-    n = b.shape[-1]
+    n, groups = b.shape[-1], b.shape[0]
     nc = -(-s // L)
     pad = nc * L - s
     P = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad)) if t.dim() == 3 \
         else torch.nn.functional.pad(t, (0, pad))                         # noqa: E731
-    x, dy, dt = P(x), P(dy), P(dt)
-    b, c = P(b), P(c)
-    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
-    da = torch.zeros(bh, dtype=x.dtype)
-    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    xs, gs = P(x).reshape(bh, nc, L, p), P(dy).reshape(bh, nc, L, p)
+    bs, cs = P(b).reshape(groups, nc, L, n), P(c).reshape(groups, nc, L, n)
+    dts = P(dt).reshape(bh, nc, L)
+    hg = torch.arange(bh) // hpg
+    cum = torch.cumsum(dts * a[:, None, None], -1)
+    total = cum[..., -1]
+    f = torch.exp(total[..., None] - cum)                       # f_j
+    xw = rnd(xs * (f * dts)[..., None])                          # x o w
+    ge = rnd(gs * torch.exp(cum)[..., None])                     # gy o exp(cum)
+    # ssd_bwd_delta: the chunks' local deltas
+    d_s = rnd(torch.einsum("hcjp,hcjn->hcpn", xw, bs[hg]))
+    d_e = rnd(torch.einsum("hcip,hcin->hcpn", ge, cs[hg]))
+    # ssd_bwd_scan: the chains over chunks, S forward and E backward
+    S, E = torch.zeros_like(d_s), torch.zeros_like(d_e)
+    st = torch.zeros(bh, p, n, dtype=x.dtype)
+    for ch in range(nc):
+        S[:, ch] = rnd(st)
+        st = torch.exp(total[:, ch])[:, None, None] * st + d_s[:, ch]
+    st = torch.zeros(bh, p, n, dtype=x.dtype)
+    for ch in reversed(range(nc)):
+        E[:, ch] = rnd(st)
+        st = torch.exp(total[:, ch])[:, None, None] * st + d_e[:, ch]
+    # ssd_bwd_chunk_wg: a block per (chunk, group) walks the group's heads
+    dx, ddt = torch.zeros_like(xs), torch.zeros_like(dts)
+    da_part = torch.zeros(bh, nc, dtype=x.dtype)
+    db, dc = torch.zeros_like(bs), torch.zeros_like(cs)
     tril = torch.tril(torch.ones(L, L, dtype=torch.bool))
-    for h in range(bh):
-        g = h // hpg
-        xs, gs = x[h].reshape(nc, L, p), dy[h].reshape(nc, L, p)
-        bs, cs = b[g].reshape(nc, L, n), c[g].reshape(nc, L, n)
-        dts = dt[h].reshape(nc, L)
-        cum = torch.cumsum(dts * a[h], -1)
-        total = cum[:, -1]
-        st, states = torch.zeros(p, n, dtype=x.dtype), []
-        for ch in range(nc):
-            states.append(st)
-            w = torch.exp(total[ch] - cum[ch]) * dts[ch]
-            st = torch.exp(total[ch]) * st + (xs[ch] * w[:, None]).T @ bs[ch]
-        e, carries = torch.zeros(p, n, dtype=x.dtype), [None] * nc
-        for ch in reversed(range(nc)):
-            carries[ch] = e
-            e = torch.exp(total[ch]) * e + (gs[ch] * torch.exp(cum[ch])[:, None]).T @ cs[ch]
-        for ch in range(nc):
-            S, E, cm, tt, dd = states[ch], carries[ch], cum[ch], total[ch], dts[ch]
-            ex = torch.where(tril, torch.exp(torch.where(tril, cm[:, None] - cm[None], 0.)), 0.)
-            A = (cs[ch] @ bs[ch].T) * ex
-            G = gs[ch] @ xs[ch].T
-            W = ex * dd[None] * G
-            Q = A * dd[None] * G
-            dcum = Q.sum(1) - Q.sum(0)
-            u = A.T @ gs[ch] + torch.exp(tt - cm)[:, None] * (bs[ch] @ E.T)
-            dx[h, ch * L:(ch + 1) * L] = dd[:, None] * u
-            ddt_direct = (xs[ch] * u).sum(1)
-            eb = (dd * torch.exp(tt - cm))[:, None] * (xs[ch] @ E)
-            sc = torch.exp(cm)[:, None] * (gs[ch] @ S)
-            db[g, ch * L:(ch + 1) * L] += W.T @ cs[ch] + eb
-            dc[g, ch * L:(ch + 1) * L] += W @ bs[ch] + sc
-            U = (eb * bs[ch]).sum(1)
-            dcum = dcum + (sc * cs[ch]).sum(1) - U
-            dcum[-1] += U.sum() + torch.exp(tt) * (E * S).sum()
-            lam = torch.flip(torch.cumsum(torch.flip(dcum, [0]), 0), [0])
-            ddt[h, ch * L:(ch + 1) * L] = ddt_direct + a[h] * lam
-            da[h] += (dd * lam).sum()
-    return dx[:, :s], ddt[:, :s], da, db[:, :s], dc[:, :s]
+    for ch in range(nc):
+        for g in range(groups):
+            B_, C_ = bs[g, ch], cs[g, ch]
+            cb = C_ @ B_.T
+            for h in range(g * hpg, (g + 1) * hpg):
+                X, GY, cm, dd = xs[h, ch], gs[h, ch], cum[h, ch], dts[h, ch]
+                Sh, Eh, fh = S[h, ch], E[h, ch], f[h, ch]
+                ex = torch.where(tril, torch.exp(torch.where(tril, cm[:, None] - cm[None], 0.)),
+                                 0.)
+                W = ex * dd[None] * (GY @ X.T)
+                A = cb * ex
+                Q = cb * W
+                db[g, ch] += rnd(W).T @ C_ + xw[h, ch] @ Eh
+                dc[g, ch] += rnd(W) @ B_ + ge[h, ch] @ Sh
+                ue = B_ @ Eh.T
+                U = dd * fh * (X * ue).sum(1)
+                u = fh[:, None] * ue + rnd(A).T @ GY
+                dx[h, ch] = dd[:, None] * u
+                T = torch.exp(cm) * (GY * (C_ @ Sh.T)).sum(1)
+                dcum = Q.sum(1) - Q.sum(0) + T - U
+                dcum[-1] += U.sum() + torch.exp(total[h, ch]) * (Eh * Sh).sum()
+                lam = torch.flip(torch.cumsum(torch.flip(dcum, [0]), 0), [0])
+                ddt[h, ch] = (X * u).sum(1) + a[h] * lam
+                da_part[h, ch] = (dd * lam).sum()
+    # ssd_bwd_da
+    da = da_part.sum(1)
+    flat = lambda t: t.reshape(t.shape[0], nc * L, *t.shape[3:])[:, :s]   # noqa: E731
+    return flat(dx), ddt.reshape(bh, nc * L)[:, :s], da, flat(db), flat(dc)
 
 
 @pytest.mark.parametrize("s,groups", [(192, 1), (100, 2), (64, 4)])
 def test_bwd_kernel_scheme_vs_plain_autograd(s, groups):
     """The backward kernel's arithmetic (``_emulate_bwd``: 64-step chunks,
-    forward states, reverse carries, per-chunk terms; a ragged tail at S
-    100) against autograd of the plain version, at mamba2's init's decays
-    (no chunk of the plain version overflows at chunk 32)."""
+    the chunks' local deltas, the chains over chunks, the per-group head
+    walk; a ragged tail at S 100) against autograd of the plain version, at
+    mamba2's init's decays (no chunk of the plain version overflows at
+    chunk 32)."""
     bh, p, n = 4, 32, 16
     x, dt, a, b, c = _inputs(bh, s, p, n, seed=s * groups, dt_scale=0.5, a_scale=0.5)
     b, c = b[:groups], c[:groups]
@@ -548,9 +568,83 @@ def test_bwd_kernel_refuses_cpu_and_grad_inputs():
     with pytest.raises(RuntimeError, match="requires a gradient"):
         ssd_kernel.ssd_scan(x.requires_grad_(True), dt, a, b[:1], c[:1])
     assert ssd_kernel.BWD_LAUNCHES == n0
-    # the scratch the kernel takes: S_c and E_c, per-head dB/dC, da's parts
+    # the scratch the kernel takes.  The FMA path: S_c and E_c in float32,
+    # per-head dB/dC, da's parts; the wgmma path (bf16 x, B and C at P 64,
+    # N 128): the deltas, then S_c and E_c, in bf16 (two to a float32
+    # word), each chunk's cum and dt, da's parts: ~195 MiB at mamba2-780m's
+    # training shape, against ~806 MiB
     assert ssd_kernel.bwd_scratch_floats(48, 8192, 64, 128) == (
         2 * 48 * 128 * 64 * 128 + 2 * 48 * 8192 * 128 + 48 * 128)
+    bf = torch.bfloat16
+    words = ssd_kernel.bwd_scratch_floats(48, 8192, 64, 128, bf, bf)
+    assert words == 48 * 128 * 64 * 128 + 48 * 128 * 2 * 64 + 48 * 128
+    assert words * 4 < 300e6
+
+
+def test_bwd_kernel_bf16_scheme_within_the_bars():
+    """The wgmma path's rounding (``_emulate_bwd(round_bf16=True)``: every
+    operand that holds float32 digits rounded to bfloat16 once) on
+    chip_smoke.py's inputs (mamba2's init: dt = softplus(N), a = -1, so a
+    chunk's log-decay passes -20) with x, B, C and the incoming gradient in
+    bfloat16, at a ragged S = 1,000 and two groups of heads: dx, dB and dC
+    rounded to bfloat16 once, every output within SSD_BWD_TOL["bf16"] of
+    autograd of the plain version in float32, as chip_smoke.py holds the
+    card."""
+    cs = _chip_smoke()
+    heads, bh, s, p, n = 4, 8, 1000, 64, 128
+    x, dt, a, b, c = cs._ssd_inputs(bh, heads, s, p, n, "cpu", seed=11)
+    assert float((dt[:, :64] * a[:, None]).sum(-1).max()) < -20
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    dy = (torch.randn((bh, s, p), generator=torch.Generator().manual_seed(12)) * 0.1).bfloat16()
+    leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, dt, a, b, c)]
+    y = ssd.ssd_chunked_ref(leaves[0], leaves[1], leaves[2],
+                            torch.repeat_interleave(leaves[3], heads, 0),
+                            torch.repeat_interleave(leaves[4], heads, 0), chunk=200)
+    want = torch.autograd.grad(y, leaves, dy.float())
+    got = _emulate_bwd(*(t.double() for t in (x, dt, a, b, c, dy)), hpg=heads,
+                       round_bf16=True)
+    out_dtypes = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.bfloat16)
+    got = [g.to(d) for g, d in zip(got, out_dtypes)]
+    tol = cs.SSD_BWD_TOL["bf16"]
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        assert torch.isfinite(g).all(), name
+        share = cs._grad_share([g], [w], *tol)
+        assert share <= 1.0, (name, share)
+
+
+@pytest.mark.parametrize("s", [64, 1000, 8192])
+@pytest.mark.parametrize("bc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xt", [torch.float32, torch.bfloat16])
+def test_bwd_plan_fits_and_covers_the_grid(xt, bc, s):
+    """``plan_bwd`` for every accepted (x dtype, B/C dtype, P, N): the wgmma
+    path exactly for bfloat16 x, B and C at P 64, N 128; every launch's
+    shared memory within what a block may use; grids that cover every
+    (chunk, head) and (chunk, group) (the chunk kernels), every head's P x
+    N state in 8-element lanes, twice (the chains), and every head (da)."""
+    bh, groups = 96, 2
+    nc = -(-s // 64)
+    for p in ssd_kernel.HEAD_DIMS:
+        for n in ssd_kernel.STATE_DIMS:
+            plan = ssd_kernel.plan_bwd(xt, bc, p, n, s, bh=bh, groups=groups)
+            wgmma = xt == bc == torch.bfloat16 and (p, n) == (64, 128)
+            assert plan["path"] == ("wgmma" if wgmma else "fma")
+            assert plan["nc"] == nc and plan["chunk_steps"] == ssd_kernel.CHUNK
+            assert all(0 <= v <= MAX_SMEM_BYTES for v in plan["smem"].values())
+            assert set(plan["grid"]) == set(plan["launches"]) == set(plan["threads"])
+            grid = plan["grid"]
+            if wgmma:
+                assert plan["launches"] == ("delta", "scan", "chunk", "da")
+                assert grid["delta"] == (nc, bh) and grid["chunk"] == (nc, groups)
+                assert grid["scan"][1] == 2
+                assert grid["scan"][0] * plan["threads"]["scan"] * 8 >= bh * p * n
+                assert grid["da"][0] * plan["threads"]["da"] >= bh
+                assert plan["threads"]["chunk"] == 128 and plan["stages"] >= 2
+                assert set(plan["rounded_to_bf16"]) == {
+                    "x o w", "gy o exp(cum)", "A", "W", "dS_c", "dE_c", "S_c", "E_c"}
+            else:
+                assert plan["launches"] == ("states", "chunk", "reduce")
+                assert grid["states"] == (bh, p // 16, 2) and grid["chunk"] == (nc, bh)
+                assert plan["rounded_to_bf16"] == ()
 
 
 @pytest.mark.parametrize("form", _chip_smoke().SSD_BWD_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
@@ -591,3 +685,25 @@ def test_cuda_bwd_kernel_vs_plain(xt, bc):
         want = torch.autograd.grad(yp, plain, dy.to(xd).float())
         tol = cs.SSD_BWD_TOL["bf16" if "bf16" in (xt, bc) else "f32"]
         assert cs._grad_share(got, want, *tol) <= 1.0, (xt, bc, s)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_kernel_is_deterministic():
+    """Two gradient calls on the same inputs give bitwise-equal dx, d(dt),
+    da, dB and dC on the wgmma path (dB and dC summed over a group's heads
+    in a fixed order, no atomics) and on the FMA path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    dev = torch.device("cuda")
+    for xt, s in ((torch.bfloat16, 1000), (torch.bfloat16, 256), (torch.float32, 200)):
+        ins = _inputs(8, s, 64, 128, seed=s, dt_scale=0.5, a_scale=0.5)
+        x, dt, a, b, c = (t.to(dev) for t in _t(*ins))
+        x, b, c = x.to(xt), b[:2].to(xt).contiguous(), c[:2].to(xt).contiguous()
+        dy = torch.randn(x.shape, device=dev).to(xt)
+        w0 = ssd_kernel.BWD_LAUNCHES_WGMMA
+        first = ssd_kernel.ssd_scan_bwd(x, dt, a, b, c, dy)
+        second = ssd_kernel.ssd_scan_bwd(x, dt, a, b, c, dy)
+        torch.cuda.synchronize()
+        assert ssd_kernel.BWD_LAUNCHES_WGMMA == w0 + 2 * (xt == torch.bfloat16)
+        for name, u, v in zip(("dx", "ddt", "da", "db", "dc"), first, second):
+            assert torch.equal(u, v), (name, xt, s)

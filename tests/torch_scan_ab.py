@@ -12,6 +12,7 @@ bitwise, over a matrix of shapes.
     python3 tests/torch_scan_ab.py --parts ring            # the ring-scan engine
     python3 tests/torch_scan_ab.py --parts alone           # launch_ms vs torch.profiler
     python3 tests/torch_scan_ab.py --parts flash_bwd       # the attention gradient
+    python3 tests/torch_scan_ab.py --parts ssd_bwd         # the SSD gradient
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -59,6 +60,14 @@ where the tree has ``kernel.bwd_passes``, each of its three launches
 alone (``pre_ms``, ``kv_ms``, ``q_ms``); and the forward kernel alone at
 llama3.2-1b's prefill without and, where the tree takes it, with the
 log-sum-exp buffer (``fwd_kernel_ms``, ``fwd_lse_kernel_ms``).
+``ssd_bwd`` (not in the default parts): the SSD gradient at
+``chip_smoke.py``'s ``SSD_BWD_FORMS`` with x, B and C in bfloat16
+(mamba2-780m's training shape first), a call (``ms``), the kernel alone
+(``kernel_ms``), each launch alone by ``torch.profiler`` over the same
+calls (``profiler_ms``: device ms a call by kernel name) and, where the
+tree has ``kernel.bwd_passes``, by ``launch_ms`` (``<launch>_ms``, the
+names ``kernel.plan_bwd`` gives), and ``plan_bwd``'s path where the tree
+has it.
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
@@ -351,6 +360,41 @@ def time_flash_bwd(torch, dev, reps):
         torch.cuda.empty_cache()
 
 
+def time_ssd_bwd(torch, dev, reps):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd import kernel as sk
+    for form, shape, heads, bh, s, p, n, _, xt, bct in CS.SSD_BWD_FORMS:
+        if (xt, bct) != ("bf16", "bf16"):
+            continue
+        x, dt, a, b, c = CS._ssd_inputs(bh, heads, s, p, n, dev, seed=s + 7)
+        x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+        dy = (torch.randn((bh, s, p), device=dev,
+                          generator=torch.Generator(dev).manual_seed(s)) * 0.1).bfloat16()
+        call = lambda: sk.ssd_scan_bwd(x, dt, a, b, c, dy)  # noqa: E731
+        rec = {"form": f"ssd_bwd_{form}", "shape": shape,
+               "ms": cuda_ms(torch, call, reps), "kernel_ms": CS.launch_ms(call, reps)}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        rec["profiler_ms"] = {
+            e.key: (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+            / reps / 1e3 for e in prof.key_averages() if "ssd" in e.key}
+        if hasattr(sk, "plan_bwd"):
+            plan = sk.plan_bwd(x.dtype, b.dtype, p, n, s, bh=bh, groups=bh // heads)
+            rec["path"] = plan["path"]
+            scratch = torch.empty(sk.bwd_scratch_floats(bh, s, p, n, x.dtype, b.dtype),
+                                  dtype=torch.float32, device=dev)
+            sk.bwd_passes(x, dt, a, b, c, dy, scratch=scratch)   # fills the scratch
+            for i, name in enumerate(plan["launches"]):
+                rec[f"{name}_ms"] = CS.launch_ms(lambda m=1 << i: sk.bwd_passes(
+                    x, dt, a, b, c, dy, passes=m, scratch=scratch), reps)
+            del scratch
+        print(json.dumps(rec), flush=True)
+        del x, dt, a, b, c, dy
+        torch.cuda.empty_cache()
+
+
 def profiler_ms(torch, fn, name, reps):
     """Device time per call of the kernels whose names hold ``name``, in one
     torch.profiler window, and the records it kept."""
@@ -410,7 +454,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parts", default="scans,flash,parser,switch",
                     help="comma-separated subset of scans, flash, parser, switch, "
-                         "parser_plans, ring, alone, flash_bwd")
+                         "parser_plans, ring, alone, flash_bwd, ssd_bwd")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import torch
@@ -439,6 +483,8 @@ def main(argv=None):
         time_alone(torch, dev, args.reps)
     if "flash_bwd" in parts:
         time_flash_bwd(torch, dev, args.reps)
+    if "ssd_bwd" in parts:
+        time_ssd_bwd(torch, dev, args.reps)
     return 0 if ok else 1
 
 
