@@ -69,8 +69,8 @@ final ``{"ok": true, ...}`` line:
            a CUDA graph of one call, for xbar, netsim, the parser, switch_loop (with
            its chain bound: its cycles times the least dependent step one
            cycle hands the next, measured) and the ring scan.
-  path     eight main paths, each with every kernel's launch counter set to 0
-           just before and read just after:
+  path     nine main paths, (a)-(h) each with every kernel's launch counter
+           set to 0 just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2,
            hft_codesign and fattree_dc with the settings their golden
            reports record (tests/golden/*.json), compared with those
@@ -156,6 +156,19 @@ final ``{"ok": true, ...}`` line:
            in float32 against the JAX package's
            in tests/torch_golden/train_{llama,mamba} (loss, gradient
            norms, gradient and updated-parameter slices).
+           (i) the dry-run (launch/dryrun.py), host work on meta tensors in
+           worker processes, no kernel: (i.1) lower_cell on the single-pod
+           mesh for llama3.2-1b train_4k, prefill_32k, decode_32k,
+           mamba2-780m train_4k, prefill_32k, decode_32k, long_500k and
+           qwen3-moe-235b-a22b train_4k, each record complete with every
+           term finite and positive, with its wall; (i.2) path (h)'s two
+           cells (one 8,192-token sequence, train, a 1 x 1 mesh) counted
+           and priced with roofline.H100_SXM beside what path (h) measured
+           in this run: train_mfu (model_flops over 989.4 TFLOP/s times
+           the median step wall after the first), the predicted live bytes
+           against torch.cuda.max_memory_allocated, the compute and memory
+           terms against the step; every line names the card and its power
+           limit.
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
@@ -1901,7 +1914,8 @@ def phase_path(dev, stats):
     failures = (path_golden(dev, stats) + path_switch(dev, stats)
                 + path_comm(dev, stats) + path_serving(dev, stats)
                 + path_served(dev, stats) + path_resume(dev, stats)
-                + path_mesh(dev, stats) + path_train(dev, stats))
+                + path_mesh(dev, stats) + path_train(dev, stats)
+                + path_dryrun(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -2117,26 +2131,6 @@ def path_resume(dev, stats):
     return failures
 
 
-class forced_devices:
-    """``REPRO_TORCH_FORCE_DEVICE_COUNT`` set for a block, then restored."""
-
-    def __init__(self, n: int):
-        self.n = n
-
-    def __enter__(self):
-        from repro_torch.launch.mesh import FORCE_ENV
-        self.prev = os.environ.get(FORCE_ENV)
-        os.environ[FORCE_ENV] = str(self.n)
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.launch.mesh import FORCE_ENV
-        if self.prev is None:
-            os.environ.pop(FORCE_ENV, None)
-        else:
-            os.environ[FORCE_ENV] = self.prev
-
-
 def path_mesh(dev, stats):
     """(g) the mesh: with REPRO_TORCH_FORCE_DEVICE_COUNT=8, so one card runs
     each mesh's shards in turn.  The engine matrix (hft, 8-port candidates,
@@ -2149,7 +2143,8 @@ def path_mesh(dev, stats):
     the next 16 RNG draws); the DSE service on 2 shards on the goldens; the
     MoE fabric over (data, model) meshes in both payloads."""
     import torch
-    with forced_devices(MESH_FORCED):
+    from repro_torch.launch.mesh import forced_device_count
+    with forced_device_count(MESH_FORCED):
         say("path", path="mesh", physical_devices=torch.cuda.device_count(),
             forced_devices=MESH_FORCED)
         return (mesh_engines(dev, stats) + mesh_reports(dev, stats)
@@ -2994,6 +2989,146 @@ def _train_fixture(stem, arch, dev, stats):
     return [] if rec["ok"] else [f"{stem} fixture"]
 
 
+#: path (i): the dry-run's production cells, counted on the single-pod
+#: mesh (16 x 16), and path (h)'s two archs at its own shape on one card
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+                ("llama3.2-1b", "decode_32k"), ("mamba2-780m", "train_4k"),
+                ("mamba2-780m", "prefill_32k"), ("mamba2-780m", "decode_32k"),
+                ("mamba2-780m", "long_500k"), ("qwen3-moe-235b-a22b", "train_4k"))
+#: the keys of the JAX package's dry-run record (every cell), and a train
+#: cell's two more
+DRYRUN_KEYS = ("arch", "shape", "mesh", "n_chips", "kind", "lower_time_s",
+               "compile_time_s", "memory", "bytes_per_device_live", "fits_16gb",
+               "cost", "memory_bytes_structural", "memory_bytes_unfused_upper",
+               "collectives", "roofline")
+DRYRUN_TRAIN_KEYS = ("optimizer", "microbatches")
+
+
+def _dryrun_cell(arch, shape_name):
+    """One production cell's record (runs in a worker process: host work,
+    meta tensors, no card)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import lower_cell
+    t0 = time.perf_counter()
+    rec = lower_cell(arch, shape_name, verbose=False)
+    rec["wall_time_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _dryrun_card(arch):
+    """path (h)'s cell counted for one card: one TRAIN_SEQ-token sequence,
+    train, a 1 x 1 mesh, the config's bf16 and remat, priced with the H100's
+    peaks (a worker process, like ``_dryrun_cell``)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.roofline import H100_SXM
+    from repro_torch.models import SINGLE_POD_PLAN
+    t0 = time.perf_counter()
+    rec = count_cell(get_config(arch), ShapeSpec("card_8k", TRAIN_SEQ, 1, "train"),
+                     make_smoke_mesh(1, 1, device="cpu"), SINGLE_POD_PLAN,
+                     microbatches=1, hw=H100_SXM)
+    rec["wall_time_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _finite_terms(rec):
+    """Every term of a record finite and positive, as the reference's are;
+    the collective term 0 only on one chip, where the plan has none."""
+    r = rec["roofline"]
+    vals = [rec["cost"]["flops"], rec["cost"]["bytes accessed"],
+            rec["bytes_per_device_live"], rec["memory"]["argument_bytes"],
+            rec["memory"]["output_bytes"], rec["memory_bytes_structural"],
+            r["compute_s"], r["memory_s"], r["bound_s"], r["model_flops_per_device"]]
+    coll = r["collective_s"]
+    return (all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in vals)
+            and math.isfinite(coll) and (coll > 0 or (rec["n_chips"] == 1 and coll == 0)))
+
+
+def path_dryrun(dev, stats):
+    """(i) the dry-run (``launch/dryrun.py``): (i.1) DRYRUN_CELLS on the
+    single-pod mesh, each record complete and every term finite and
+    positive, with its wall; (i.2) path (h)'s llama3.2-1b and mamba2-780m
+    cells counted for one card (``count_cell`` on a 1 x 1 mesh, priced with
+    ``roofline.H100_SXM``) beside what path (h) measured in this run:
+    ``train_mfu`` = model_flops / (989.4e12 x the median wall of the steps
+    after the first), the predicted live bytes against
+    ``torch.cuda.max_memory_allocated``, the compute and memory terms
+    against the step.  Host work on meta tensors, in worker processes;
+    nothing here runs on the card.  The gaps are findings, not gates."""
+    import concurrent.futures
+    import multiprocessing
+    import statistics
+    from repro_torch.launch.roofline import H100_SXM
+
+    failures = []
+    card = nvidia_smi()
+    t_path = time.perf_counter()
+    workers = max(1, min(len(DRYRUN_CELLS) + len(TRAIN_ARCHS), os.cpu_count() or 1))
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cells = {pool.submit(_dryrun_cell, a, s): (a, s) for a, s in DRYRUN_CELLS}
+        cards = {pool.submit(_dryrun_card, a): a for a in TRAIN_ARCHS}
+        for fut, (arch, shape) in cells.items():
+            try:
+                rec = fut.result()
+            except Exception:              # report every cell, then fail
+                traceback.print_exc()
+                failures.append(f"dry-run {arch} {shape} raised")
+                continue
+            keys = DRYRUN_KEYS + (DRYRUN_TRAIN_KEYS if rec["kind"] == "train" else ())
+            ok = all(k in rec for k in keys) and _finite_terms(rec)
+            out = {"dryrun": f"{arch} {shape}", "mesh": rec["mesh"], "card": card,
+                   "wall_time_s": rec["wall_time_s"], "flops": rec["cost"]["flops"],
+                   "bytes_accessed": rec["cost"]["bytes accessed"],
+                   "memory": rec["memory"], "live_bytes": rec["bytes_per_device_live"],
+                   "collectives": rec["collectives"], "roofline": rec["roofline"],
+                   "ok": ok}
+            stats["dryrun"].append(out)
+            say("path", **out)
+            if not ok:
+                failures.append(f"dry-run {arch} {shape} record")
+        for fut, arch in cards.items():
+            try:
+                rec = fut.result()
+            except Exception:
+                traceback.print_exc()
+                failures.append(f"dry-run card {arch} raised")
+                continue
+            steps = [r for r in stats["train"] if r.get("train") == arch and "step" in r]
+            walls = [r["wall_s"] for r in steps if r["step"] > 0]
+            r = rec["roofline"]
+            out = {"dryrun": f"{arch} card", "card": card, "shape": f"1 x {TRAIN_SEQ} train",
+                   "wall_time_s": rec["wall_time_s"], "flops": rec["cost"]["flops"],
+                   "model_flops": r["model_flops_per_device"],
+                   "predicted_compute_s": r["compute_s"], "predicted_memory_s": r["memory_s"],
+                   "predicted_bound_s": r["bound_s"], "dominant": r["dominant"],
+                   "predicted_live_bytes": rec["bytes_per_device_live"],
+                   "memory": rec["memory"], "ok": _finite_terms(rec)}
+            if walls:
+                median = statistics.median(walls)
+                peak = max(s["peak_mem_gb"] for s in steps) * 2 ** 30
+                out.update(measured_step_s=median, measured_steps=len(walls),
+                           train_mfu=r["model_flops_per_device"]
+                           / (H100_SXM["peak_flops_bf16"] * median),
+                           compute_share=r["compute_s"] / median,
+                           memory_share=r["memory_s"] / median,
+                           measured_peak_bytes=peak,
+                           live_over_peak=rec["bytes_per_device_live"] / peak)
+            stats["dryrun"].append(out)
+            say("path", **out)
+            if not out["ok"]:
+                failures.append(f"dry-run card {arch} terms")
+    say("path", path="dryrun", card=card, seconds=time.perf_counter() - t_path)
+    return failures
+
+
 def _timed(problem, name, log):
     """Wrap one batched hook of ``problem`` to record its wall time and
     what it returned (for the serial spot checks)."""
@@ -3230,12 +3365,12 @@ def scale_mesh_dse(dev, stats, scen, kw, first, r2_auto, c4_auto, r4_auto):
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.ring_scan import kernel as rk
     from repro_torch.kernels.xbar import kernel as xk
-    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.mesh import MeshSpec, forced_device_count
     from repro_torch.sim import timeline as memo
 
     memo.clear()
     torch.cuda.reset_peak_memory_stats(dev)
-    with forced_devices(MESH_FORCED):
+    with forced_device_count(MESH_FORCED):
         problem, sla, budget = build_problem(
             scen.override(trace_params={"duration_s": 0.04}), device=dev)
         log, events = {}, []
@@ -3782,7 +3917,7 @@ def main(argv=None) -> int:
     say("build", **build)
 
     stats = {"forms": [], "flash_seeds": [], "scale": [], "switch": [], "comm": [],
-             "serving": [], "train": [], "launches": {}}
+             "serving": [], "train": [], "dryrun": [], "launches": {}}
     failed = []
     for name, fn in (("kernels", phase_kernels), ("path", phase_path),
                      ("scale", phase_scale), ("profile", phase_profile)):

@@ -30,7 +30,7 @@ import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "MAX_SMEM_BYTES", "KernelError",
            "library", "build_all", "capturing", "check_launch", "check_no_grad",
-           "check_ports", "check_tensor"]
+           "check_ports", "check_tensor", "takes_plain"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -150,6 +150,19 @@ def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
             "kernel's output would carry none. Call the op (kernels.<name>.ops), "
             "which launches it inside its autograd Function, or run under "
             "torch.no_grad()")
+
+
+def takes_plain(x: torch.Tensor) -> bool:
+    """The model path's wrappers dispatch on this: True for a CPU tensor or
+    a meta tensor (shapes only: the dry-run counts a step through the plain
+    versions without running it), False for a CUDA tensor (the kernel);
+    any other device raises."""
+    if x.device.type in ("cpu", "meta"):
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain version for a tensor on {x.device}; "
+                     "use a CUDA, CPU or meta tensor")
 
 
 def capturing(x: torch.Tensor) -> bool:

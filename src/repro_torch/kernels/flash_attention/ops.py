@@ -3,9 +3,9 @@
 Device policy: CUDA tensors launch the hand-written kernel
 (``kernel.flash_attention``) through ``FlashAttentionFn``, whose backward
 launches the hand-written gradient kernel (``kernel.flash_attention_bwd``);
-CPU tensors take the plain PyTorch version (``ref.blockwise_ref``), which
-autograd differentiates as it is.  There is no fallback from one to the
-other.
+CPU and meta tensors take the plain PyTorch version (``ref.blockwise_ref``),
+which autograd differentiates as it is (``build.takes_plain``; any other
+device raises).  There is no fallback from one to the other.
 ``attention_reference`` is the port of the JAX package's oracle op (heads
 repeated, exact softmax).
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import takes_plain
 from . import kernel
 from .ref import attention_ref, blockwise_ref
 
@@ -48,7 +49,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 1024) -> torch.Tensor:
     """q [B, Hq, S, D], k/v [B, Hkv, T, D] -> [B, Hq, S, D].  ``block_q`` and
     ``block_k`` tile the plain version only: the kernel picks its own."""
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return blockwise_ref(q, k, v, causal=causal, window=window,
                              block_q=block_q, block_k=block_k)
     return FlashAttentionFn.apply(_aligned(q), _aligned(k), _aligned(v), causal, window)

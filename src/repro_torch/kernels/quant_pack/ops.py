@@ -3,8 +3,9 @@
 
 Device policy: CUDA tensors launch the hand-written kernels
 (``kernel.quantize``/``kernel.dequantize``) through ``QuantizeFn`` and
-``DequantizeFn``, CPU tensors take the plain PyTorch versions (``ref.py``);
-there is no fallback from one to the other.
+``DequantizeFn``, CPU and meta tensors take the plain PyTorch versions
+(``ref.py``; ``build.takes_plain``), any other device raises; there is no
+fallback from one to the other.
 
 The gradient, as the reference's autodiff of ``quantize_ref`` and
 ``dequantize_ref`` gives it, flows only through the scale: ``round`` and the
@@ -26,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from ..build import takes_plain
 from . import kernel
 from .ref import GROUP, dequantize_ref, quantize_ref
 
@@ -77,7 +79,7 @@ class DequantizeFn(torch.autograd.Function):
 
 def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [R, C] (C % 128 == 0) -> (q int8 [R, C], scales float32 [R, C/128])."""
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return quantize_ref(x)
     return QuantizeFn.apply(x.contiguous())
 
@@ -85,7 +87,7 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize(q: torch.Tensor, s: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(q, s) -> [R, C] ``out_dtype``."""
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return dequantize_ref(q, s, out_dtype)
     return DequantizeFn.apply(q.contiguous(), s.contiguous(), out_dtype)
 

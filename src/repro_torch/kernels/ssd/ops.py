@@ -5,9 +5,10 @@ kernel (``kernel.ssd_scan``, which picks its own chunk) through
 ``SSDScanFn``, whose backward launches the hand-written gradient kernel
 (``kernel.ssd_scan_bwd``); a call that asks for the final state (the
 prefill's) launches the forward kernel alone, and raises where a gradient
-would be needed.  CPU tensors take the plain version
+would be needed.  CPU and meta tensors take the plain version
 (``ref.ssd_chunked_ref`` at ``chunk``), which autograd differentiates as it
-is.  There is no fallback from one to the other.  B and C go to the kernel in their own
+is (``build.takes_plain``; any other device raises).  There is no
+fallback from one to the other.  B and C go to the kernel in their own
 dtype where both are float32 or both bfloat16 (the bf16 model's are bf16,
 exact in one bf16 pass), else as float32.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import takes_plain
 from . import kernel
 from .ref import ssd_chunked_ref
 
@@ -61,7 +63,7 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, return_state: bool = False)
     bh = x.shape[0]
     if b.shape[0] != c.shape[0] or bh % b.shape[0]:
         raise ValueError(f"b/c rows {b.shape[0]}, {c.shape[0]} must divide {bh}")
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return ssd_chunked_ref(x, dt, a, _per_head(b, bh), _per_head(c, bh),
                                chunk=chunk, return_state=return_state)
     f32 = torch.float32

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["compat_make_mesh", "make_production_mesh", "make_smoke_mesh",
-           "plan_for_mesh", "device_count", "shard_map", "Mesh", "FORCE_ENV",
+           "plan_for_mesh", "device_count", "forced_device_count", "shard_map",
+           "Mesh", "FORCE_ENV",
            "N_DEVICES", "MeshSpec", "padded_size", "shard_pad", "shard_unpad"]
 
 N_DEVICES = {"single": 256, "multi": 512}
@@ -66,6 +67,22 @@ def device_count(device_type: str = "cuda") -> int:
     if n < 1:
         raise ValueError(f"{FORCE_ENV}={n}; it must be >= 1")
     return n
+
+
+@contextlib.contextmanager
+def forced_device_count(n: int):
+    """``FORCE_ENV`` set to ``n`` for the block, then restored (unset where
+    it was unset): a caller that needs the production meshes' device count
+    never leaves it set for the rest of the process."""
+    prev = os.environ.get(FORCE_ENV)
+    os.environ[FORCE_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(FORCE_ENV, None)
+        else:
+            os.environ[FORCE_ENV] = prev
 
 
 def _validate_mesh_shape(shape, axes, device_type: str) -> None:

@@ -119,6 +119,15 @@ def router_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=e)`` for ids in [0, e), int64,
+    with a shape fixed by ``e``: integer adds, so bitwise bincount's on
+    any device, and it runs on meta tensors, which bincount does not."""
+    ids = ids.reshape(-1)
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
 def _route_learned(xs, router, topk):
     logits = router_matmul(xs.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)
@@ -127,7 +136,7 @@ def _route_learned(xs, router, topk):
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     e = router.shape[-1]
     probs_mean = probs.mean(0)
-    counts = torch.bincount(experts.reshape(-1), minlength=e).to(torch.float32)
+    counts = expert_counts(experts, e).to(torch.float32)
     f = counts / counts.sum().clamp_min(1.0)
     aux = e * torch.sum(f * probs_mean)
     return experts, gates.to(xs.dtype), aux
@@ -266,7 +275,7 @@ def _dispatch(xs, params, cfg: ModelConfig, opts: MoEOptions, tp_size: int):
     order = torch.argsort(e_flat, stable=True)
     es = e_flat[order]
     gs = g_flat[order]
-    counts = torch.bincount(es, minlength=e)                      # queue occupancy
+    counts = expert_counts(es, e)                                 # queue occupancy
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(es.shape[0], device=dev) - starts[es]
     keep = pos < cap
