@@ -69,8 +69,8 @@ final ``{"ok": true, ...}`` line:
            a CUDA graph of one call, for xbar, netsim, the parser, switch_loop (with
            its chain bound: its cycles times the least dependent step one
            cycle hands the next, measured) and the ring scan.
-  path     nine main paths, (a)-(h) each with every kernel's launch counter
-           set to 0 just before and read just after:
+  path     ten main paths, (a)-(h) and (j) each with every kernel's launch
+           counter set to 0 just before and read just after:
            (a) run_scenario on the card for hft, datacenter, hft_nsga2,
            hft_codesign and fattree_dc with the settings their golden
            reports record (tests/golden/*.json), compared with those
@@ -169,6 +169,21 @@ final ``{"ok": true, ...}`` line:
            against torch.cuda.max_memory_allocated, the compute and memory
            terms against the step; every line names the card and its power
            limit.
+           (j) in-switch aggregation (a custom kernel's Python fn, as an
+           ingress pass of switch_loop.cu, the hooks stepped once a cycle
+           on the host and an egress pass): (j1) the fused loop against
+           ingress then egress on ingress's own out, bitwise, on every form
+           of the kernels phase's switch_loop; (j2) simulate with
+           examples/inswitch_allreduce_torch.py's aggregation hook and with
+           a hook that rewrites out to -1, -2, a port and values the switch
+           has no port for and marks empty lanes valid, on
+           rl_allreduce(rounds=2, chunks_per_round=2) (8,631 cycles),
+           bitwise the eager loop on the CPU, and each pass against its
+           plain version (switch_ingress, switch_egress: a call, alone,
+           the bound and the chain bound); (j3) the example's two switches
+           on rl_allreduce(rounds=3): each pass alone, the hooks' host time,
+           the total, the fused loop on the same trace; switch_ingress and
+           switch_egress must launch (counted over (j2) and (j3)).
   scale    run_dse on a 40 ms hft capture (~372k events) and evaluate_space
            on a 10 ms one (~93k events, 480 candidate rows), with two
            candidates of each held bitwise against the serial run_surrogate /
@@ -1887,6 +1902,8 @@ def _counters():
             "ring_scan": (rk, "LAUNCHES"),
             "islip_schedule": (ik, "LAUNCHES"),
             "switch_loop": (slk, "LAUNCHES"),
+            "switch_ingress": (slk, "INGRESS_LAUNCHES"),
+            "switch_egress": (slk, "EGRESS_LAUNCHES"),
             "parse_headers": (pk, "LAUNCHES"),
             "quantize": (qk, "QUANTIZE_LAUNCHES"),
             "dequantize": (qk, "DEQUANTIZE_LAUNCHES"),
@@ -1915,7 +1932,7 @@ def phase_path(dev, stats):
                 + path_comm(dev, stats) + path_serving(dev, stats)
                 + path_served(dev, stats) + path_resume(dev, stats)
                 + path_mesh(dev, stats) + path_train(dev, stats)
-                + path_dryrun(dev, stats))
+                + path_dryrun(dev, stats) + path_hooks(dev, stats))
     if failures:
         raise AssertionError(f"path failures: {failures}")
 
@@ -3787,6 +3804,209 @@ def host_profile_calibration(dev, stats):
 
 
 # --------------------------------------------------------------------------
+#: (j): the example's trace cut for (j2) (8,631 cycles; round 2's incast
+#: hits the learned aggregator port) and (j3)
+HOOK_TRACE = dict(seed=0, n_ports=8, rounds=2, chunks_per_round=2)
+HOOK_TRACE_J3 = dict(seed=0, n_ports=8, rounds=3)
+#: what (j2)'s rewriting hook writes: no queue, a broadcast, a port, a port
+#: the switch does not have, a value outside int32
+HOOK_REWRITES = (-1, -2, 3, 99, 1 << 40)
+
+
+def _example(name):
+    """examples/<name>.py as a module (its top level only defines)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rewriting_hook(kst, pids, out_port, valid, cyc):
+    """Rewrites lane (cycle mod N)'s out (HOOK_REWRITES in turn) and marks
+    the next lane valid with a rewritten out, packet or not."""
+    k, n = int(cyc), pids.shape[0]
+    out_port, valid = out_port.clone(), valid.clone()
+    out_port[k % n] = HOOK_REWRITES[k % len(HOOK_REWRITES)]
+    out_port[(k + 1) % n] = HOOK_REWRITES[(k // n) % len(HOOK_REWRITES)]
+    valid[(k + 1) % n] = True
+    return kst, out_port, valid
+
+
+def _pass_bounds(t, n, npkt, key_words, cycle_ns):
+    """Bytes/operations bounds of the ingress and the egress pass (read
+    each input once, write each output once; a lookup per lane and cycle,
+    a fan-out over N queues per lane and cycle) and their chain bound."""
+    ingress = _bound(t * n * 4 + npkt * 4 * key_words + t * n * 4, t * n, 4)
+    egress = _bound(t * n * 9 + npkt * 4 + max(npkt, 1) * 8 + t * 8 + n * n * 8 + 24,
+                    t * n * n, 4)
+    return ingress, egress, t * cycle_ns * 1e-6
+
+
+def _sim_equal(got, want):
+    import numpy as np
+    errors = []
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        if not same:
+            errors.append(f.name)
+    return errors
+
+
+def path_hooks(dev, stats):
+    """(j) in-switch aggregation: a custom kernel's Python fn on the card,
+    as an ingress pass, the hooks on the host and an egress pass.
+    (j1) the fused loop against ingress then egress on ingress's own out
+    (no hook), bitwise, on every switch_loop form; (j2) the example's
+    aggregation hook and a rewriting hook on rl_allreduce(rounds=2,
+    chunks_per_round=2) through simulate, bitwise the eager loop on the
+    CPU, each pass against its plain version; (j3) the example's two
+    switches on rl_allreduce(rounds=3): each pass alone, the hooks' host
+    time, the total, and the fused loop on the same trace."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.core import CustomKernelSpec, bind, compressed_protocol
+    from repro_torch.kernels.switch_loop import hooks
+    from repro_torch.kernels.switch_loop import kernel as slk
+    from repro_torch.kernels.switch_loop import ops as loop_ops
+    from repro_torch.kernels.switch_loop.ref import egress_ref, ingress_ref
+    from repro_torch.sim.resources import synthesize
+    from repro_torch.switch.switch import simulate
+    from repro_torch.traces import rl_allreduce
+
+    failures = []
+    cycle_ns = switch_chain_step_ns(dev)
+    # (j1): no hook between the passes, so no host time
+    for form, (arch, bound, trace, fclk, cycles) in switch_loop_forms(dev).items():
+        arr, words, sizes, keys = _switch_form(arch, bound, trace, fclk, cycles, dev)
+        fused = slk.switch_loop_launch(arch, arr, words, sizes, keys)
+        out = slk.switch_ingress_launch(arch, arr, words, keys)
+        split = slk.switch_egress_launch(arch, arr, out, arr >= 0, sizes)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(fused, split))
+        say("path", path="hooks_j1", form=form, cycles=arr.shape[0], bitwise_equal=same)
+        if not same:
+            failures.append(f"j1 {form}: the passes differ from the fused loop")
+
+    agg = _example("inswitch_allreduce_torch")
+    (_, base), (_, hooked) = agg.architectures(8)
+    bound = bind(compressed_protocol(addr_bits=4, length_bits=12), flit_bits=1024)
+    fclk = synthesize(hooked, bound).fmax_mhz * 1e6
+    rewriting = dc.replace(base, custom_kernels=(CustomKernelSpec("rewrite",
+                                                                  fn=_rewriting_hook),))
+    real_run_hooks = hooks.run_hooks
+    seen = {}
+
+    def timed_run_hooks(arch, arr_pid, out):
+        t0 = time.perf_counter()
+        res = real_run_hooks(arch, arr_pid, out)
+        seen.update(host_s=time.perf_counter() - t0, hooked=res)
+        return res
+
+    def sim(arch, trace, device):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(arch, bound, trace, fclk_hz=fclk, device=device)
+        return res, time.perf_counter() - t0
+
+    hooks.run_hooks = timed_run_hooks
+    try:
+        _reset_counters()
+        # (j2) both hooks through simulate, bitwise the eager loop on the CPU
+        trace = rl_allreduce(**HOOK_TRACE)
+        for name, arch in (("allreduce_r2c2", hooked), ("rewrite_r2c2", rewriting)):
+            seen.clear()
+            got, wall = sim(arch, trace, dev)
+            want, p_wall = sim(arch, trace, "cpu")
+            errors = _sim_equal(got, want)
+            say("path", path="hooks_j2", form=name, cycles=got.n_cycles,
+                delivered=got.delivered_copies, drops=got.drops, mismatches=errors,
+                wall_s=wall, hooks_host_s=seen.get("host_s"), plain_wall_s=p_wall)
+            if errors or "hooked" not in seen:
+                failures.append(f"j2 {name}: {errors or 'the passes did not run'}")
+            if name != "allreduce_r2c2":
+                continue
+            # each pass against its plain version on the same inputs (the
+            # plain passes on the CPU, as simulate's plain version runs)
+            before = _read_counters()
+            arr, words, sizes, keys = _switch_form(arch, bound, trace, fclk, None, dev)
+            out_h, valid_h = seen["hooked"]
+            out_d, valid_d = loop_ops.egress_inputs(out_h, valid_h, dev)
+            kern_in = lambda: slk.switch_ingress_launch(arch, arr, words, keys)  # noqa: E731
+            kern_eg = lambda: slk.switch_egress_launch(arch, arr, out_d, valid_d,  # noqa: E731
+                                                       sizes)
+            g_in, g_eg = kern_in(), kern_eg()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w_in = ingress_ref(arch, arr.cpu(), words.cpu(), keys)
+            p_in = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            w_eg = egress_ref(arch, arr.cpu(), out_h, valid_h, sizes.cpu())
+            p_eg = (time.perf_counter() - t0) * 1e3
+            t, n = arr.shape
+            key_words = len({p[0] for pieces in keys for p in pieces})
+            (b_in, by_in), (b_eg, by_eg), chain = _pass_bounds(
+                t, n, words.shape[0], key_words, cycle_ns)
+            common = {"form": name, "shape": f"T{t}", "arch": arch.short(),
+                      "n_ports": n, "packets": words.shape[0], "cycles": t,
+                      "plain_device": "cpu", "chain_cycles": t,
+                      "t_cycle_step_ns": cycle_ns, "chain_bound_ms": chain,
+                      "chain_bound_by": "cycles x the least dependent step"}
+            k_in, k_eg = launch_ms(kern_in, reps=3), launch_ms(kern_eg, reps=3)
+            for kname, g, w, k_ms, ms, p_ms, b, by in (
+                    ("switch_ingress", (g_in,), (w_in,), k_in, cuda_ms(kern_in, reps=3),
+                     p_in, b_in, by_in),
+                    ("switch_egress", tuple(g_eg), tuple(w_eg), k_eg,
+                     cuda_ms(kern_eg, reps=3), p_eg, b_eg, by_eg)):
+                rec = dict(common, kernel=kname, ms=ms, kernel_ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b, bound_by=by, bound_share=b / k_ms,
+                           kernel_us_per_cycle=k_ms * 1e3 / t)
+                if not _record(stats, rec, tuple(x.cpu() for x in g), w):
+                    failures.append(f"j2 {kname} differs from its plain version")
+            # the comparisons' launches are not the path's
+            for k, (mod, attr) in _counters().items():
+                setattr(mod, attr, before[k])
+        # (j3) the example's two switches on three rounds
+        trace = rl_allreduce(**HOOK_TRACE_J3)
+        seen.clear()
+        res_hooked, wall_hooked = sim(hooked, trace, dev)
+        res_base, wall_base = sim(base, trace, dev)
+        launches = _read_counters()
+    finally:
+        hooks.run_hooks = real_run_hooks
+    arr, words, sizes, keys = _switch_form(hooked, bound, trace, fclk, None, dev)
+    out_d, valid_d = loop_ops.egress_inputs(*seen["hooked"], dev)
+    t = arr.shape[0]
+    rec = {"path": "hooks_j3", "trace": "rl_allreduce(rounds=3)", "cycles": t,
+           "packets": words.shape[0],
+           "ingress_ms": launch_ms(lambda: slk.switch_ingress_launch(
+               hooked, arr, words, keys), reps=3),
+           "egress_ms": launch_ms(lambda: slk.switch_egress_launch(
+               hooked, arr, out_d, valid_d, sizes), reps=3),
+           "fused_ms": launch_ms(lambda: slk.switch_loop_launch(
+               base, arr, words, sizes, keys), reps=3),
+           "hooks_host_s": seen["host_s"],
+           "hooks_host_us_per_cycle": seen["host_s"] * 1e6 / t,
+           "hooked_simulate_s": wall_hooked, "baseline_simulate_s": wall_base,
+           "delivered": [res_base.delivered_copies, res_hooked.delivered_copies],
+           "p50_ns": [res_base.p(50), res_hooked.p(50)],
+           "p99_ns": [res_base.p(99), res_hooked.p(99)],
+           "maxq": [int(res_base.occ_max.max()), int(res_hooked.occ_max.max())],
+           "chain_bound_ms": t * cycle_ns * 1e-6, "launches": launches}
+    stats["hooks"] = rec
+    say("path", **rec)
+    stats["launches"].update({k: launches[k] for k in ("switch_ingress", "switch_egress")})
+    if not (0 < res_hooked.delivered_copies < res_base.delivered_copies
+            and all(math.isfinite(x) for x in rec["p99_ns"])):
+        failures.append(f"j3: the aggregation did not absorb the incast: {rec}")
+    if not (launches["switch_ingress"] > 0 and launches["switch_egress"] > 0):
+        failures.append(f"the passes did not run on path (j): {launches}")
+    return failures
+
+
 # main
 # --------------------------------------------------------------------------
 
@@ -3807,6 +4027,18 @@ KERNELS = {
                     "replaces": "src/repro/switch/switch.py:214 (lax.scan) and "
                                 "src/repro/kernels/islip/kernel.py:73",
                     "main": ("hft_rung4_champion", None)},
+    # path (j): the in-switch all-reduce's hooked switch, two passes a
+    # simulation; the form held to the plain version is (j2)'s trace
+    "switch_ingress": {"source": "src/repro_torch/csrc/switch_loop.cu",
+                       "replaces": "src/repro/switch/switch.py:214 (lax.scan; the cycle "
+                                   "step's parse, learn and lookup, :162-169) and "
+                                   "src/repro/kernels/parser/kernel.py:45",
+                       "main": ("allreduce_r2c2", None)},
+    "switch_egress": {"source": "src/repro_torch/csrc/switch_loop.cu",
+                      "replaces": "src/repro/switch/switch.py:214 (lax.scan; the cycle "
+                                  "step from the enqueue on, :176-199) and "
+                                  "src/repro/kernels/islip/kernel.py:73",
+                      "main": ("allreduce_r2c2", None)},
     # no longer on a main path (the switch parses at ingress inside
     # switch_loop): hft's protocol at its calibration trace's 9,600 headers
     "parse_headers": {"source": "src/repro_torch/csrc/parser.cu",

@@ -79,6 +79,17 @@ class CustomKernelSpec:
     ``ii``/``latency_cycles``/resources form the performance interface the
     user must declare so the DSE can account for the kernel; ``fn`` is the
     functional model (meta, data) -> (meta, data) used by the simulators.
+
+    The cycle-level switch calls ``fn(state, pids, out_port, valid, cyc) ->
+    (state, out_port, valid)`` once a cycle, idle cycles too, after the
+    forward table's lookup and before the VOQ enqueue, each spec in order,
+    on CPU tensors whether the switch runs on the CPU or on a card: int64
+    ``pids`` [N] (-1 no packet) and ``out_port`` [N] (a port, -2 broadcast,
+    -1 none; any other value queues nothing), bool ``valid`` [N], a 0-d
+    int64 ``cyc``.  ``state`` starts as the attribute ``init_state`` (None
+    without one) and whatever ``fn`` returns is passed to the next cycle
+    unchanged.  ``fn`` must not write into its arguments.  An exception in
+    ``fn`` ends the simulation.
     """
 
     name: str

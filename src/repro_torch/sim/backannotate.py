@@ -60,8 +60,10 @@ def _measured_eta(arch: SwitchArch, bound: BoundProtocol, fclk_hz: float,
     """Run a short saturation trace through the cycle-level switch; measure the
     achieved output utilisation = matching efficiency.  The cache is keyed by
     family only, so the first caller's architecture and protocol set a
-    family's η for the process, as in the reference; ``device`` is where the
-    switch runs (default: the first CUDA device) and does not change η."""
+    family's η for the process, as in the reference, custom-kernel hooks
+    included (on a card they run between the switch loop's ingress and
+    egress passes); ``device`` is where the switch runs (default: the first
+    CUDA device) and does not change η."""
     key = (arch.sched, arch.n_ports, arch.voq, arch.islip_iters)
     if key in _ETA_CACHE:
         return _ETA_CACHE[key]

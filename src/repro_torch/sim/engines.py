@@ -259,6 +259,9 @@ def _batched_netsim_kernel_evaluate(arch, bound, trace, *, hw=None,
 
 def _cycle_evaluate(arch, bound, trace, *, hw=None, back_annotation=False,
                     i_burst=1.0, max_cycles=None, device=None) -> VerifyResult:
+    """Rung 4: the cycle-level switch on ``device``, the candidate's
+    custom-kernel hooks included (on a card: the switch loop's ingress
+    pass, the hooks on the host, its egress pass)."""
     from repro_torch.switch.switch import simulate
     hw = _annotate(arch, bound, hw, back_annotation, i_burst, device)
     res = simulate(arch, bound, trace, fclk_hz=hw.fclk_hz,

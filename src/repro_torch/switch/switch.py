@@ -5,9 +5,9 @@ of the loop in ``simulate`` = one clock cycle of the FPGA datapath:
 
   1. ingress: per-port arriving flit (head flit carries the packed header);
      the compile-time-specialised parser extracts routing/src keys,
-  2. custom kernels (optional, §III-B.5) may rewrite destinations/drop,
-  3. the forward table learns src→port and looks up the output port
+  2. the forward table learns src→port and looks up the output port
      (miss ⇒ broadcast),
+  3. custom kernels (optional, §III-B.5) may rewrite destinations/drop,
   4. the VOQ buffer enqueues (drops when full),
   5. the scheduler computes an input/output matching,
   6. matched heads dequeue; multi-flit packets hold their input & output busy
@@ -23,8 +23,12 @@ jitted ``lax.scan`` over cycles becomes the ``switch_loop`` op
 hand-written CUDA kernel runs every cycle of the simulation; on the CPU its
 plain version, the eager loop, steps the table, VOQ and scheduler modules
 here once a cycle.  An architecture whose custom kernel carries a Python
-``fn`` runs only on the CPU: no CUDA kernel can call Python, and on a card
-the kernel's wrapper refuses it.  The loop takes the packed header words
+``fn`` runs on a card as two launches of that kernel: every cycle's
+ingress (steps 1-2), then the hooks stepped once a cycle on the host, then
+every cycle's egress (steps 4-6) — exact, since nothing of egress flows
+back into ingress; on the CPU the eager loop calls the hook inside each
+cycle.  The ``fn`` contract is ``CustomKernelSpec``'s
+(``core/archspec.py``).  The loop takes the packed header words
 and the routing and src keys' baked slices: on a card the kernel parses
 each arriving header at ingress, as the reference's cycle step does (and
 the FPGA's parser); the eager loop extracts every header's keys once
@@ -150,8 +154,9 @@ def simulate(
     the cycles run: on a card, one launch of the ``switch_loop`` kernel for
     the whole simulation; on the CPU, its plain version, the eager loop.
     An architecture with a custom kernel whose ``fn`` is a Python callable
-    runs with ``device="cpu"``: on a card the kernel's wrapper raises for
-    it."""
+    runs on a card as the kernel's ingress pass, the hooks stepped once a
+    cycle on the host (CPU tensors), and its egress pass; the result is the
+    eager loop's bit for bit."""
     dev = resolve_device(device)
     prep = prepare_cycle_inputs(arch, bound, trace, fclk_hz, max_cycles=max_cycles)
     size_flits = torch.from_numpy(prep["size_flits"]).to(dev)

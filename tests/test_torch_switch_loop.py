@@ -6,8 +6,10 @@ eager loop over the table, VOQ and scheduler modules) gives the reference
 ``simulate``'s ``SwitchSimResult`` exactly, for every forward table x VOQ x
 scheduler combination and for iSLIP at 3 and 32 ports with 1-4 rounds;
 ``simulate`` sends every architecture through the op, which runs the eager
-loop on the CPU, a Python custom-kernel ``fn`` included; the wrapper refuses
-CPU tensors, more than 32 ports and a custom ``fn``; ``plan`` keeps hft's and
+loop on the CPU, a Python custom-kernel ``fn`` included, and on a card the
+fused launch, or for a ``fn`` the ingress pass, the hooks and the egress
+pass; the wrapper refuses CPU tensors, more than 32 ports and a custom
+``fn`` (the passes run it); ``plan`` keeps hft's and
 datacenter's rung-4 champions in shared memory and a 32-port, depth-2,048
 ring in device memory.  Inputs come from the reference's seeded trace
 generators and go to both packages as NumPy.  The CUDA kernel runs only on
@@ -43,6 +45,7 @@ from repro_torch.core import archspec as pa  # noqa: E402
 from repro_torch.kernels.parser import slices  # noqa: E402
 from repro_torch.kernels.switch_loop import kernel as loop_kernel  # noqa: E402
 from repro_torch.kernels.switch_loop import ops as loop_ops  # noqa: E402
+from repro_torch.kernels.switch_loop import ref as loop_ref  # noqa: E402
 from repro_torch.kernels.switch_loop import switch_loop, switch_loop_ref  # noqa: E402
 from repro_torch.switch import switch as sw  # noqa: E402
 
@@ -223,9 +226,34 @@ def test_simulate_dispatches_on_the_architecture(monkeypatch):
     iface = dataclasses.replace(base, custom_kernels=(pa.CustomKernelSpec("iface"),))
     sw.simulate(iface, pbound, ptrace, fclk_hz=FCLK, max_cycles=300, device="cpu")
     assert calls == {"ops": 3, "ref": 3}
-    # the kernel cannot call the hook: its wrapper refuses the architecture
+    # on a card: the fused launch without a hook; with one, the ingress
+    # pass, the hook on the host, then the egress pass (the launches stood
+    # in for by their plain versions, CPU tensors routed as a card's)
     _, arr, words, sizes, keys = _loop_inputs(base, pbound, ptrace, 100)
-    with pytest.raises(ValueError, match='device="cpu"'):
+    launched = []
+
+    def stand_in(name, fn):
+        def run(*a):
+            launched.append(name)
+            return fn(*a)
+        return run
+    monkeypatch.setattr(loop_ops, "_plain", lambda x: False)
+    monkeypatch.setattr(loop_kernel, "switch_loop_launch",
+                        stand_in("fused", real_ref))
+    monkeypatch.setattr(loop_kernel, "switch_ingress_launch",
+                        stand_in("ingress", loop_ref.ingress_ref))
+    monkeypatch.setattr(loop_kernel, "switch_egress_launch",
+                        stand_in("egress", loop_ref.egress_ref))
+    for arch, route in ((base, ["fused"]), (iface, ["fused"]),
+                        (hooked, ["ingress", "egress"])):
+        launched.clear()
+        got_out = loop_ops.switch_loop(arch, arr, words, sizes, keys)
+        assert launched == route
+        for g, w in zip(got_out, real_ref(arch, arr, words, sizes, keys)):
+            assert torch.equal(g, w)
+    # the fused form cannot call the hook: its wrapper sends it to the passes
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="ingress"):
         loop_kernel.switch_loop_launch(hooked, arr, words, sizes, keys)
     # an identity hook changes nothing but the pipeline latency it adds
     assert got.delivered_copies == plain.delivered_copies

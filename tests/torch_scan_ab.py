@@ -13,6 +13,7 @@ bitwise, over a matrix of shapes.
     python3 tests/torch_scan_ab.py --parts alone           # launch_ms vs torch.profiler
     python3 tests/torch_scan_ab.py --parts flash_bwd       # the attention gradient
     python3 tests/torch_scan_ab.py --parts ssd_bwd         # the SSD gradient
+    python3 tests/torch_scan_ab.py --parts hooks           # the in-switch all-reduce
 
 Run it from each tree in turns (A, B, B, A) in one run on the card.  It
 measures (ms per call, CUDA events over back-to-back calls after a warm-up)
@@ -67,12 +68,19 @@ log-sum-exp buffer (``fwd_kernel_ms``, ``fwd_lse_kernel_ms``).
 calls (``profiler_ms``: device ms a call by kernel name) and, where the
 tree has ``kernel.bwd_passes``, by ``launch_ms`` (``<launch>_ms``, the
 names ``kernel.plan_bwd`` gives), and ``plan_bwd``'s path where the tree
-has it.
+has it.  ``hooks`` (this tree only, not in the default parts): the
+in-switch all-reduce example's two switches on its full trace
+(``examples/inswitch_allreduce_torch.py``, 515,653 cycles): each
+``simulate`` (wall), the hooked switch's ingress and egress passes alone
+and the hooks' host time inside its ``simulate``, the same host loop with a
+hook that returns its inputs (``identity_hook_host_s``: the loop's own
+cost), and the baseline's fused loop alone.
 
 Needs a CUDA card; prints the card's name and power limit, then one JSON
 line per result.  Exits 1 if a form of the matrix disagrees.
 """
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -277,6 +285,62 @@ def time_switch(torch, dev, reps):
                       "delivered": int(got.delivered)}), flush=True)
 
 
+def time_hooks(torch, dev, reps):
+    import time
+    from repro_torch.core import bind, compressed_protocol
+    from repro_torch.kernels.switch_loop import hooks
+    from repro_torch.kernels.switch_loop import kernel as slk
+    from repro_torch.kernels.switch_loop import ops as loop_ops
+    from repro_torch.sim.resources import synthesize
+    from repro_torch.switch.switch import simulate
+    from repro_torch.traces import rl_allreduce
+    (_, base), (_, hooked) = CS._example("inswitch_allreduce_torch").architectures(8)
+    bound = bind(compressed_protocol(addr_bits=4, length_bits=12), flit_bits=1024)
+    fclk = synthesize(hooked, bound).fmax_mhz * 1e6
+    trace = rl_allreduce(seed=0, n_ports=8)
+    real, seen = hooks.run_hooks, {}
+
+    def timed(arch, arr_pid, out):
+        t0 = time.perf_counter()
+        seen["hooked"] = real(arch, arr_pid, out)
+        seen["host_s"] = time.perf_counter() - t0
+        return seen["hooked"]
+    rec = {"form": "inswitch_allreduce_full"}
+    hooks.run_hooks = timed
+    try:
+        for name, arch in (("baseline", base), ("hooked", hooked)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulate(arch, bound, trace, fclk_hz=fclk, device=dev)
+            rec[f"{name}_simulate_s"] = time.perf_counter() - t0
+            rec[f"{name}_delivered"] = res.delivered_copies
+    finally:
+        hooks.run_hooks = real
+    arr, words, sizes, keys = CS._switch_form(hooked, bound, trace, fclk, None, dev)
+    out_d, valid_d = loop_ops.egress_inputs(*seen["hooked"], dev)
+    t = arr.shape[0]
+    # the host loop's own cost: run_hooks on the same cycles with a hook
+    # that returns its inputs
+    spec = hooked.custom_kernels[0]
+    ident = dataclasses.replace(hooked, custom_kernels=(dataclasses.replace(
+        spec, fn=lambda st, p, o, v, c: (st, o, v)),))
+    out_c = slk.switch_ingress_launch(hooked, arr, words, keys).cpu()
+    t0 = time.perf_counter()
+    hooks.run_hooks(ident, arr.cpu(), out_c)
+    ident_s = time.perf_counter() - t0
+    rec.update(cycles=t, hooks_host_s=seen["host_s"],
+               hooks_host_us_per_cycle=seen["host_s"] * 1e6 / t,
+               identity_hook_host_s=ident_s,
+               identity_hook_host_us_per_cycle=ident_s * 1e6 / t,
+               ingress_ms=CS.launch_ms(lambda: slk.switch_ingress_launch(
+                   hooked, arr, words, keys), reps),
+               egress_ms=CS.launch_ms(lambda: slk.switch_egress_launch(
+                   hooked, arr, out_d, valid_d, sizes), reps),
+               fused_ms=CS.launch_ms(lambda: slk.switch_loop_launch(
+                   base, arr, words, sizes, keys), reps))
+    print(json.dumps(rec), flush=True)
+
+
 def time_ring(torch, dev, reps):
     import time
     from repro_torch.kernels.ring_scan import kernel as rk
@@ -454,7 +518,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parts", default="scans,flash,parser,switch",
                     help="comma-separated subset of scans, flash, parser, switch, "
-                         "parser_plans, ring, alone, flash_bwd, ssd_bwd")
+                         "parser_plans, ring, alone, flash_bwd, ssd_bwd, hooks")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import torch
@@ -485,6 +549,8 @@ def main(argv=None):
         time_flash_bwd(torch, dev, args.reps)
     if "ssd_bwd" in parts:
         time_ssd_bwd(torch, dev, args.reps)
+    if "hooks" in parts:
+        time_hooks(torch, dev, 3)
     return 0 if ok else 1
 
 
