@@ -21,7 +21,9 @@ autograd differentiates it, through the kernels' autograd Functions on the
 card.  ``remat="block"`` (the configs' default) recomputes each layer's
 block in the backward pass (``torch.utils.checkpoint``, non-reentrant),
 the counterpart of the reference's ``jax.checkpoint``; under ``no_grad``
-(serving) it does nothing.
+(serving) it does nothing.  Each block runs in the ``model.block`` span
+(``model.block.recompute`` inside the backward) and the loss in
+``model.loss`` (``repro_torch.spans``: free unless a profiler records).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
+
+from repro_torch import spans
 
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
@@ -159,8 +163,17 @@ def _inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     return x, positions
 
 
-def _block_apply(layer_params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+def _block_apply(layers, i: int, cfg: ModelConfig, plan: ShardingPlan, mesh,
                  x, positions, moe_opts, window: int):
+    """Layer ``i``'s block, its weights sliced from the stacked ``layers``
+    inside the block's span (their gradient's scatter into the stacked leaf
+    is the block's backward)."""
+    with spans.block_span():
+        return _block(_layer(layers, i), cfg, plan, mesh, x, positions, moe_opts, window)
+
+
+def _block(layer_params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+           x, positions, moe_opts, window: int):
     h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "ssm":
@@ -186,6 +199,24 @@ def _unembed(params, cfg: ModelConfig, x):
     return matmul(x, params["unembed"].to(x.dtype))
 
 
+def _hidden(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+            batch: Dict[str, torch.Tensor], moe_opts, window: int):
+    """The last block's output [B, S, d] and ``forward``'s aux."""
+    x, positions = _inputs(params, cfg, batch)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    auxs = []
+    for i in range(cfg.n_layers):
+        args = (params["layers"], i, cfg, plan, mesh, x, positions, moe_opts, window)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(_block_apply, *args, use_reentrant=False)
+        else:
+            x, aux = _block_apply(*args)
+        auxs.append(aux)
+    if not auxs or not auxs[0]:
+        return x, {}
+    return x, {k: torch.stack([a[k] for a in auxs]).float().mean() for k in auxs[0]}
+
+
 def forward(
     params,
     cfg: ModelConfig,
@@ -198,23 +229,8 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token/embedding batch -> logits [B, S, V] (+ aux: the MoE layers'
     ``aux_loss``/``drop_frac``/``expert_load`` averaged over layers)."""
-    x, positions = _inputs(params, cfg, batch)
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
-    auxs = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _block_apply, lp, cfg, plan, mesh, x, positions, moe_opts, window,
-                use_reentrant=False)
-        else:
-            x, aux = _block_apply(lp, cfg, plan, mesh, x, positions, moe_opts, window)
-        auxs.append(aux)
-    logits = _unembed(params, cfg, x)
-    if not auxs or not auxs[0]:
-        return logits, {}
-    return logits, {k: torch.stack([a[k] for a in auxs]).float().mean()
-                    for k in auxs[0]}
+    x, aux = _hidden(params, cfg, plan, mesh, batch, moe_opts, window)
+    return _unembed(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
@@ -224,15 +240,16 @@ def loss_fn(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
     (float32 logits, log-sum-exp minus the gold logit), plus ``aux_weight``
     times the MoE load-balance loss; metrics ``loss``, ``tokens`` and the
     forward's aux values."""
-    logits, aux = forward(params, cfg, plan, mesh, batch, moe_opts=moe_opts,
-                          window=window)
-    labels = batch["labels"].long()
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    nll = logz - gold
-    mask = (labels >= 0).to(torch.float32)
-    loss = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    x, aux = _hidden(params, cfg, plan, mesh, batch, moe_opts, window)
+    with spans.span(spans.LOSS):
+        logits = _unembed(params, cfg, x)
+        labels = batch["labels"].long()
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        nll = logz - gold
+        mask = (labels >= 0).to(torch.float32)
+        loss = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
     if aux and "aux_loss" in aux:
         loss = loss + aux_weight * aux["aux_loss"]
     metrics = {"loss": loss, "tokens": mask.sum(), **aux}

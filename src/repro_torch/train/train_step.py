@@ -12,6 +12,10 @@ gradients accumulated in float32 in the reference's order (a Python loop in
 place of its ``lax.scan``).  Batches may hold NumPy arrays (moved to the
 parameters' device) or tensors.
 
+The step marks its phases with ``repro_torch.spans`` (``train.step``,
+``train.forward``, ``train.backward``, ``train.clip``, ``train.lr``,
+``train.optimizer``) for a recording ``torch.profiler``.
+
 ``TrainSpec.shard_grads`` is a GSPMD placement hint in the reference (a
 ``with_sharding_constraint`` with no numeric effect); the port accepts it
 and does nothing with it, as it does for ``sp_activations``.
@@ -26,6 +30,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ShardingPlan
 from repro_torch.models.moe import MoEOptions
@@ -94,8 +99,10 @@ def value_and_grad(loss_for: Callable) -> Callable:
             live = [p.detach().requires_grad_(True) for p in leaves]
             it = iter(live)
             tracked = tree_map(lambda _: next(it), params)
-            loss, metrics = loss_for(tracked, batch)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
+            with spans.span(spans.FORWARD):
+                loss, metrics = loss_for(tracked, batch)
+            with spans.span(spans.BACKWARD):
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         it = iter(grads)
         return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
@@ -128,7 +135,7 @@ def make_train_step(
         from repro_torch.comm.protocols import wrap_grad_fn_with_pod_protocol
         grad_fn = wrap_grad_fn_with_pod_protocol(grad_fn, mesh, payload="int8")
 
-    def train_step(params, opt_state, batch, step):
+    def step_body(params, opt_state, batch, step):
         dev = tree_leaves(params)[0].device
         batch = batch_to(batch, dev)
         nmb = spec.microbatches
@@ -149,11 +156,18 @@ def make_train_step(
         else:
             (loss, metrics), grads = grad_fn(params, batch)
 
-        grads, gnorm = clip_by_global_norm(grads, spec.max_grad_norm)
-        lr = lr_schedule(spec, torch.as_tensor(step, device=dev))
-        params, opt_state = opt.update(grads, opt_state, params, lr)
+        with spans.span(spans.CLIP):
+            grads, gnorm = clip_by_global_norm(grads, spec.max_grad_norm)
+        with spans.span(spans.LR):
+            lr = lr_schedule(spec, torch.as_tensor(step, device=dev))
+        with spans.span(spans.OPTIMIZER):
+            params, opt_state = opt.update(grads, opt_state, params, lr)
         metrics = dict(metrics)
         metrics.update({"grad_norm": gnorm, "lr": lr})
         return params, opt_state, metrics
+
+    def train_step(params, opt_state, batch, step):
+        with spans.span(spans.STEP):
+            return step_body(params, opt_state, batch, step)
 
     return train_step
