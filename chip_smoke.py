@@ -58,7 +58,13 @@ final ``{"ok": true, ...}`` line:
            SSD_BWD_FORMS: mamba2-780m's [48, 8192, 64, 128] and a ragged
            length, float32 and bfloat16 x/B/C, bfloat16 x, B and C on the
            wgmma path, each launch timed alone, two calls bitwise equal),
-           each with ms per call, kernel alone and its bound; the ring-scan stage-4
+           each with ms per call, kernel alone and its bound; the Mamba-2
+           mixer's fused glue (GLUE_FORMS: mamba2-780m's training shape in
+           bfloat16 and float32, hymba-1.5b's H 50) against apply_mamba's
+           plain code (forwards within 1 ulp in bfloat16, 8 in float32;
+           gradients within 1e-2 / 1e-5 in norm; two gradient calls
+           bitwise equal), each of its four kernels alone beside its bytes
+           bound and with its own largest absolute error; the ring-scan stage-4
            kernel (end and admit bitwise) at hft's and datacenter's shapes,
            64 ports (the k=8 fat-tree's edge tier flattened) and 300, at
            depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
@@ -102,8 +108,8 @@ final ``{"ok": true, ...}`` line:
            init: llama3.2-1b (16 layers) and mamba2-780m (48 layers)
            prefill of 4 x 8,192 tokens, twice each (the reference's
            prefill_32k cut from 32 x 32,768), with flash_attention launched
-           16 times, all on its wgmma path, and ssd_scan 48 times per
-           prefill (wall, tokens/s, the
+           16 times, all on its wgmma path, and ssd_scan 48 times and the
+           mixer's fused glue 96 times per prefill (wall, tokens/s, the
            kernels' share from CUDA events around each launch, peak
            memory); ServeEngine on llama3.2-1b serving 8 requests (4 slots,
            max_new 16, s_max 256); and both models' prefill (2 layers, 1 x
@@ -149,7 +155,9 @@ final ``{"ok": true, ...}`` line:
            below the first, every parameter's step-0 gradient finite and
            non-zero somewhere, flash_attention_bwd 16 and ssd_scan_bwd 48
            calls a step, all on their wgmma paths (the forward kernels 32
-           and 96: remat's recompute); step wall, tokens/s, the kernels'
+           and 96: remat's recompute), each of the mixer's two fused
+           forwards 2 launches a layer a step and each of their gradients
+           1; step wall, tokens/s, the kernels'
            and the gradients' share (CUDA events), peak memory; one more
            mamba2-780m step under torch.profiler, its top device
            operations outside the SSD kernels; then one AdamW step at 2 layers, full width, 1 x 1,024 tokens
@@ -605,6 +613,7 @@ def phase_kernels(dev, stats):
     ok &= kernels_flash_bwd(dev, stats)
     ok &= kernels_flash_bwd_seeds(dev, stats)
     ok &= kernels_ssd_bwd(dev, stats)
+    ok &= kernels_mamba_glue(dev, stats)
     ok &= kernels_ring_scan(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
@@ -1755,6 +1764,161 @@ def kernels_ssd_bwd(dev, stats):
     return ok
 
 
+#: the Mamba-2 mixer's fused glue (kernels/mamba_glue), form -> (B, S, H,
+#: P, K, activation dtype): mamba2-780m's training shape (the benchmark
+#: cell's: 6 x 8,192 tokens, H 48, P 64), hymba-1.5b's heads (H 50) and the
+#: training shape in float32 (path (h)'s fixtures run float32 activations)
+GLUE_FORMS = {"mamba_train": (6, 8192, 48, 64, 4, "bf16"),
+              "hymba_train": (1, 8192, 50, 64, 4, "bf16"),
+              "mamba_train_f32": (6, 8192, 48, 64, 4, "f32")}
+#: the glue's four kernels (each timed alone) and the ptxas needle of their
+#: instantiation at K 4 / one group of channels a thread
+GLUE_KERNELS = ("mamba_conv_silu_fwd", "mamba_conv_silu_bwd", "mamba_gate_norm_fwd",
+                "mamba_gate_norm_bwd")
+
+
+def _glue_bytes(b, s, h, p, k, item):
+    """The least bytes each glue kernel moves: every input read once and
+    every output written once (activations ``item`` bytes, the rest
+    float32)."""
+    n, di = b * s * h * p, h * p
+    return {"mamba_conv_silu_fwd": 2 * n * item + di * k * 4,          # xi; xh; w
+            "mamba_conv_silu_bwd": 3 * n * item + 2 * di * k * 4,      # xi, dxh; dxi; w, dw
+            # y, xh, z; out; dskip, norm_g; rstd
+            "mamba_gate_norm_fwd": 4 * n * item + (h + di) * 4 + b * s * 4,
+            # dout, y, xh, z; dy, dxh, dz; dskip, norm_g and theirs; rstd
+            "mamba_gate_norm_bwd": 7 * n * item + 2 * (h + di) * 4 + b * s * 4}
+
+
+def _glue_ptxas(dtype):
+    from repro_torch.kernels.build import _target, library
+    library("mamba_glue")
+    log = _target("mamba_glue").with_suffix(".log")
+    if not log.exists():
+        return None
+    text = log.read_text()
+    tx = "13__nv_bfloat16" if dtype == "bf16" else "If"
+    return {k: _ptxas_entry(text, (k, tx, "Li4ELi4E") if "conv" in k else (k, tx))
+            for k in GLUE_KERNELS}
+
+
+def kernels_mamba_glue(dev, stats):
+    """The mixer's fused glue against the plain code of apply_mamba on the
+    card (ref.py's forwards, which apply_mamba runs on the CPU, and autograd
+    of them), per GLUE_FORMS: the forwards within 1 ulp in bfloat16 (8
+    float32 ulps in float32), each gradient within 1e-2 / 1e-5 of the plain
+    one in norm, two gradient calls bitwise equal.  Each of the four kernels
+    alone (``launch_ms``) beside its bytes bound, with its own largest
+    absolute difference (``max_abs_err``), and the plain forward's time."""
+    import torch
+    from repro_torch.kernels.mamba_glue import kernel as mk
+    from repro_torch.kernels.mamba_glue import ref
+
+    ok = True
+    eps = 1e-5
+    for form, (b, s, h, p, k, dt) in GLUE_FORMS.items():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        di, item = h * p, 2 if dt == "bf16" else 4
+        g = torch.Generator(dev).manual_seed(s + h)
+        xi = torch.randn((b, s, di), generator=g, device=dev).to(dtype)
+        w = torch.randn((di, k), generator=g, device=dev) * 0.1
+        y, xh, dxh = (torch.randn((b * h, s, p), generator=g, device=dev).to(dtype)
+                      for _ in range(3))
+        z, dout = (torch.randn((b, s, di), generator=g, device=dev).to(dtype) for _ in range(2))
+        dskip = torch.ones((h,), device=dev) + 0.1 * torch.randn((h,), generator=g, device=dev)
+        norm_g = torch.ones((di,), device=dev) + 0.1 * torch.randn((di,), generator=g,
+                                                                   device=dev)
+        calls = {
+            "mamba_conv_silu_fwd": lambda: mk.conv_silu_heads(xi, w, h),
+            "mamba_conv_silu_bwd": lambda: mk.conv_silu_heads_bwd(xi, w, dxh),
+            "mamba_gate_norm_fwd": lambda: mk.skip_gate_norm(y, xh, z, dskip, norm_g, eps),
+        }
+        _, rstd = calls["mamba_gate_norm_fwd"]()
+        calls["mamba_gate_norm_bwd"] = lambda: mk.skip_gate_norm_bwd(
+            dout, y, xh, z, dskip, norm_g, rstd)
+        plains = {"mamba_conv_silu_fwd": lambda: ref.conv_silu_heads_ref(xi, w, h),
+                  "mamba_gate_norm_fwd": lambda: ref.skip_gate_norm_ref(y, xh, z, dskip,
+                                                                        norm_g, eps)}
+
+        def plain_grads(fn, args, seed_grad):
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            with torch.enable_grad():
+                return torch.autograd.grad(fn(*leaves), leaves, seed_grad)
+
+        # each kernel's own largest absolute difference from the plain code:
+        # its output (the forwards), or over its gradients
+        checks, errs = {}, {}
+        for name, key in (("mamba_conv_silu_fwd", "conv_fwd_ulps"),
+                          ("mamba_gate_norm_fwd", "norm_fwd_ulps")):
+            got, want = calls[name](), plains[name]()
+            got = got[0] if isinstance(got, tuple) else got
+            checks[key] = _glue_ulps(got, want, dtype)
+            errs[name] = _glue_abs(got, want)
+            del got, want
+        one, two = calls["mamba_conv_silu_bwd"](), calls["mamba_conv_silu_bwd"]()
+        repeat = all(bool(torch.equal(a, c)) for a, c in zip(one, two))
+        del two
+        want = plain_grads(lambda a, c: ref.conv_silu_heads_ref(a, c, h), (xi, w), dxh)
+        checks["conv_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(("dxi", "dw"),
+                                                                          one, want)}
+        errs["mamba_conv_silu_bwd"] = max(_glue_abs(a, c) for a, c in zip(one, want))
+        del one, want
+        one, two = calls["mamba_gate_norm_bwd"](), calls["mamba_gate_norm_bwd"]()
+        repeat &= all(bool(torch.equal(a, c)) for a, c in zip(one, two))
+        del two
+        want = plain_grads(lambda *a: ref.skip_gate_norm_ref(*a, eps),
+                           (y, xh, z, dskip, norm_g), dout)
+        checks["norm_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(
+            ("dy", "dxh", "dz", "ddskip", "dnorm_g"), one, want)}
+        errs["mamba_gate_norm_bwd"] = max(_glue_abs(a, c) for a, c in zip(one, want))
+        del one, want
+        torch.cuda.synchronize()
+        fwd_bar, grad_bar = (1, 1e-2) if dt == "bf16" else (8, 1e-5)
+        good = (checks["conv_fwd_ulps"] <= fwd_bar and checks["norm_fwd_ulps"] <= fwd_bar
+                and max(checks["conv_grad_rel"].values()) <= grad_bar
+                and max(checks["norm_grad_rel"].values()) <= grad_bar and repeat)
+        bytes_ = _glue_bytes(b, s, h, p, k, item)
+        ptxas = _glue_ptxas(dt)
+        for name, call in calls.items():
+            bound, by = _bound(bytes_[name], 0, 4)
+            rec = {"kernel": name, "form": form, "shape": form, "B": b, "S": s, "H": h, "P": p,
+                   "K": k, "dtype": dt, "ms": cuda_ms(call, reps=5),
+                   "kernel_ms": launch_ms(call, reps=5), "bound_ms": bound, "bound_by": by,
+                   "bytes": bytes_[name], "library_ms": None,
+                   "plain_ms": cuda_ms(plains[name], reps=2) if name in plains else None,
+                   "ptxas": (ptxas or {}).get(name), "checks": checks,
+                   "bitwise_repeat": repeat, "within_tolerance": good,
+                   "max_abs_err": errs[name]}
+            rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+            stats["forms"].append(rec)
+            say("kernels", **rec)
+        ok &= good
+        del xi, w, y, xh, dxh, z, dout, dskip, norm_g, rstd, calls, plains
+        torch.cuda.empty_cache()
+    return ok
+
+
+def _glue_ulps(got, want, dtype) -> float:
+    """The largest |got - want| in ulps of the larger of the two, in the
+    activation dtype (bfloat16 8 bits, float32 24)."""
+    import torch
+    bits = 8 if dtype == torch.bfloat16 else 24
+    got, want = got.double(), want.double()
+    big = torch.maximum(got.abs(), want.abs())
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), (e - bits).clamp(min=-126 - bits))
+    return float(((got - want).abs() / ulp).max())
+
+
+def _glue_abs(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def _glue_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
 #: the ring-scan engine's shapes, name -> (n_ports, m, rows of the mixed
 #: batch): hft's (8 ports, 3,707 events), datacenter's (32 ports, 530), the
 #: k=8 fat-tree's edge tier flattened (64 ports) and 300 ports (the tail in
@@ -1891,6 +2055,7 @@ def _counters():
     """kernel name -> (the module of its wrapper, the counter's name)"""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.islip import kernel as ik
+    from repro_torch.kernels.mamba_glue import kernel as mk
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.switch_loop import kernel as slk
@@ -1913,7 +2078,11 @@ def _counters():
             "flash_attention_bwd_wgmma": (fk, "BWD_LAUNCHES_WGMMA"),
             "ssd_scan": (sk, "LAUNCHES"),
             "ssd_scan_bwd": (sk, "BWD_LAUNCHES"),
-            "ssd_scan_bwd_wgmma": (sk, "BWD_LAUNCHES_WGMMA")}
+            "ssd_scan_bwd_wgmma": (sk, "BWD_LAUNCHES_WGMMA"),
+            "mamba_conv_silu_fwd": (mk, "CONV_LAUNCHES"),
+            "mamba_conv_silu_bwd": (mk, "CONV_BWD_LAUNCHES"),
+            "mamba_gate_norm_fwd": (mk, "NORM_LAUNCHES"),
+            "mamba_gate_norm_bwd": (mk, "NORM_BWD_LAUNCHES")}
 
 
 def _reset_counters():
@@ -2640,9 +2809,12 @@ def path_serving(dev, stats):
         for arch, layers in SERVE_PREFILL.items():
             cfg = get_config(arch)
             # llama's bf16 D 64 attention takes the wgmma path every layer;
-            # mamba's SSD (x, B and C in bf16) is one call a layer
+            # mamba's SSD (x, B and C in bf16) is one call a layer, and so
+            # is each of its mixer's two fused forwards
             want_launches = ({"flash_attention": layers, "flash_attention_wgmma": layers}
-                             if cfg.has_attention else {"ssd_scan": layers})
+                             if cfg.has_attention else {"ssd_scan": layers,
+                                                        "mamba_conv_silu_fwd": layers,
+                                                        "mamba_gate_norm_fwd": layers})
             t0 = time.perf_counter()
             params = T.init_params(torch.Generator(dev).manual_seed(0), cfg, PLAN)
             torch.cuda.synchronize()
@@ -2844,7 +3016,14 @@ def path_train(dev, stats):
                      "flash_attention": 2 * layers}
                     if cfg.has_attention else {"ssd_scan_bwd": layers,
                                                "ssd_scan_bwd_wgmma": layers,
-                                               "ssd_scan": 2 * layers})
+                                               "ssd_scan": 2 * layers,
+                                               # the mixer's fused kernels: each
+                                               # forward and its recompute, one
+                                               # gradient each
+                                               "mamba_conv_silu_fwd": 2 * layers,
+                                               "mamba_gate_norm_fwd": 2 * layers,
+                                               "mamba_conv_silu_bwd": layers,
+                                               "mamba_gate_norm_bwd": layers})
             losses = []
             for i in range(TRAIN_STEPS):
                 batch = data.batch(i)
@@ -2892,7 +3071,7 @@ def path_train(dev, stats):
         undo()
     stats["launches"].update({k: totals.get(k, 0) for k in (
         "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan_bwd",
-        "ssd_scan_bwd_wgmma")})
+        "ssd_scan_bwd_wgmma", *GLUE_KERNELS)})
     say("path", path="train", launches=totals, seconds=time.perf_counter() - t_path)
     return failures
 
@@ -4073,6 +4252,12 @@ KERNELS = {
                      "replaces": "src/repro/kernels/ssd/ops.py:21 (autodiff of "
                                  "ssd_chunked; no Pallas kernel)",
                      "main": ("x_bf16_bc_bf16", "mamba_train")},
+    # the Mamba-2 mixer's fused glue (path (h): mamba2-780m's training step,
+    # each once a layer and pass); the reference leaves the glue to XLA
+    **{name: {"source": "src/repro_torch/csrc/mamba_glue.cu",
+              "replaces": "src/repro/models/mamba2.py apply_mamba (XLA-fused glue; "
+                          "no Pallas kernel)",
+              "main": ("mamba_train", None)} for name in GLUE_KERNELS},
     # stage 4 with use_kernel="off" (the goldens' off runs): hft's shape, a
     # batch of mixed sized depths; the reference runs it as a lax.scan (no
     # Pallas counterpart)

@@ -9,6 +9,7 @@
   quant_pack/ - int8 payload quantize/dequantize (the MoE dispatch fabric)
   flash_attention/ - causal GQA attention, online softmax (the prefill)
   ssd/     - Mamba-2 SSD chunked scan (the SSM layers' prefill)
+  mamba_glue/ - the Mamba-2 mixer's conv, gates and norm around the scan
 
 Each family keeps the JAX package's triple: ``kernel.py`` binds the CUDA
 kernel (sources in ``repro_torch/csrc/``, built by ``build.py`` at first

@@ -5,8 +5,12 @@ Projections are stored unpacked (wz/wx/wb/wc/wdt); B and C are shared by a
 sequence's heads (G = 1).  The sequence mix runs through
 ``kernels.ssd.ssd_chunked``: the hand-written kernel on the card, its plain
 version on the CPU.  The kernel reads B and C once per sequence, where the
-reference broadcasts them H-fold in memory (``_heads``).  Decode keeps a
-[B·H, P, N] state and a depthwise-conv tail instead of a KV cache.
+reference broadcasts them H-fold in memory.  The mixer's conv, SiLU,
+dskip add, gate and norm run through ``kernels.mamba_glue``
+(``conv_silu_heads`` before the scan, ``skip_gate_norm`` after it): two
+fused kernels with their gradients on the card, the plain statements of
+``kernels/mamba_glue/ref.py`` on the CPU.  Decode keeps a [B·H, P, N] state
+and a depthwise-conv tail instead of a KV cache.
 
 As in the reference, the prefill convolution applies tap 0 to the current
 token and the decode step applies tap K-1 to it (ROADMAP, queue 3); the port
@@ -20,6 +24,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import mamba_glue
+from repro_torch.kernels.mamba_glue.ref import gated_norm, to_tokens
 from repro_torch.kernels.ssd import ssd_chunked, ssd_decode_step
 from .config import ModelConfig, ShardingPlan
 from .layers import dense_init, matmul
@@ -48,58 +54,33 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over seq: x [B, S, C], w [C, K] (the
-    reference's unrolled shifts; the sum is float32 once w is)."""
-    k = w.shape[-1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(k):
-        out = out + xp[:, i: i + x.shape[1]] * w[:, k - 1 - i]
-    return out
-
-
-def _heads(x, b, c, dt, cfg: ModelConfig):
-    """x [B, S, H·P] -> [B·H, S, P]; dt [B, S, H] -> [B·H, S].  b/c [B, S, N]
-    stay one row per sequence, which ``ssd_chunked`` serves to all H heads
-    (the reference broadcasts them to [B·H, S, N])."""
-    bsz, s, _ = x.shape
-    h, p = cfg.ssm_heads, cfg.ssm_headdim
-    xh = x.reshape(bsz, s, h, p).transpose(1, 2).reshape(bsz * h, s, p)
-    dth = dt.transpose(1, 2).reshape(bsz * h, s)
-    return xh, b, c, dth
-
-
 def _gated_norm(y, z, params, cfg: ModelConfig, dtype):
-    y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    yf = y.to(torch.float32)
-    return (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
-            * params["norm_g"]).to(dtype)
+    return gated_norm(y, z, params["norm_g"], cfg.norm_eps, dtype)
 
 
 def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor, *, chunk: int = 128,
                 return_state: bool = False):
     bsz, s, d = x.shape
-    h, p = cfg.ssm_heads, cfg.ssm_headdim
+    h = cfg.ssm_heads
     f32 = torch.float32
     z = matmul(x, params["wz"])
-    xi = matmul(x, params["wx"])
-    xi = F.silu(_causal_conv(xi, params["conv_w"]).to(f32)).to(x.dtype)
+    # the causal conv and SiLU, written in the scan's [B·H, S, P] layout
+    xh = mamba_glue.conv_silu_heads(matmul(x, params["wx"]), params["conv_w"], h)
     b = matmul(x, params["wb"])
     c = matmul(x, params["wc"])
     dt = F.softplus(matmul(x.to(f32), params["wdt"]) + params["dt_bias"])
-    xh, bg, cg, dth = _heads(xi, b, c, dt, cfg)
+    dth = dt.transpose(1, 2).reshape(bsz * h, s)
     a = -torch.exp(params["a_log"][None].expand(bsz, h).reshape(-1))
     ch_len = min(chunk, s) if s % min(chunk, s) == 0 else s
-    out = ssd_chunked(xh, dth, a, bg, cg, chunk=ch_len, return_state=return_state)
+    out = ssd_chunked(xh, dth, a, b, c, chunk=ch_len, return_state=return_state)
     y, final_state = out if return_state else (out, None)          # [BH, S, P]
-    y = y + xh * params["dskip"][None, :, None, None].expand(bsz, h, s, p).reshape(bsz * h, s, p)
-    y = y.reshape(bsz, h, s, p).transpose(1, 2).reshape(bsz, s, h * p)
-    y = _gated_norm(y, z, params, cfg, x.dtype)
+    # the dskip add, back to token order, the gated norm
+    y = mamba_glue.skip_gate_norm(y, xh, z, params["dskip"], params["norm_g"], cfg.norm_eps)
     out = matmul(y, params["wo"])
     if return_state:
         k1 = cfg.ssm_conv - 1
-        conv_tail = xi[:, -k1:] if s >= k1 else F.pad(xi, (0, 0, k1 - s, 0))
+        xi = to_tokens(xh[:, -k1:], bsz)             # the conv's last K-1 rows
+        conv_tail = xi if s >= k1 else F.pad(xi, (0, 0, k1 - s, 0))
         return out, {"ssm": final_state, "conv": conv_tail}
     return out
 
