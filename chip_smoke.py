@@ -60,11 +60,20 @@ final ``{"ok": true, ...}`` line:
            wgmma path, each launch timed alone, two calls bitwise equal),
            each with ms per call, kernel alone and its bound; the Mamba-2
            mixer's fused glue (GLUE_FORMS: mamba2-780m's training shape in
-           bfloat16 and float32, hymba-1.5b's H 50) against apply_mamba's
+           bfloat16 and float32, hymba-1.5b's H 50; GLUE_BIAS_GROUP_FORMS:
+           Nemotron-3-Nano's x with the conv's bias and the norm over 8
+           groups, and its B and C, the conv alone) against apply_mamba's
            plain code (forwards within 1 ulp in bfloat16, 8 in float32;
            gradients within 1e-2 / 1e-5 in norm; two gradient calls
            bitwise equal), each of its four kernels alone beside its bytes
-           bound and with its own largest absolute error; the ring-scan stage-4
+           bound and with its own largest absolute error; the dropless
+           expert layer's row moves (MOE_DROPLESS_FORM: Nemotron-3-Nano's
+           E layer, 3 x 8,192 tokens, top-6 of 128, d 2,688, 8 experts
+           held) against their plain statements and autograd of them (live
+           rows within 1 ulp, the dispatch bitwise, the gates' gradient
+           within 1e-5 in norm), one layer's forward and gradient launching
+           2 gathers, 2 token sums and 1 pair dot, each call alone beside
+           its bytes bound from the live rows; the ring-scan stage-4
            kernel (end and admit bitwise) at hft's and datacenter's shapes,
            64 ports (the k=8 fat-tree's edge tier flattened) and 300, at
            depths 1, 2, 8, 64 and 1,024 and a mixed batch, and on a
@@ -614,6 +623,7 @@ def phase_kernels(dev, stats):
     ok &= kernels_flash_bwd_seeds(dev, stats)
     ok &= kernels_ssd_bwd(dev, stats)
     ok &= kernels_mamba_glue(dev, stats)
+    ok &= kernels_moe_dropless(dev, stats)
     ok &= kernels_ring_scan(dev, stats)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
@@ -1777,17 +1787,27 @@ GLUE_KERNELS = ("mamba_conv_silu_fwd", "mamba_conv_silu_bwd", "mamba_gate_norm_f
                 "mamba_gate_norm_bwd")
 
 
-def _glue_bytes(b, s, h, p, k, item):
+#: the glue's forms with a conv bias and the gate norm over groups, name ->
+#: (B, S, H, P, K, dtype, bias, groups): Nemotron-3-Nano-30B-A3B's cell
+#: (B 3, S 8,192): x (64 heads of 64, the norm over 8 groups), and B and C
+#: (8 groups, P = N = 128), whose forms run the conv alone (groups 0)
+GLUE_BIAS_GROUP_FORMS = {"nemotron_x": (3, 8192, 64, 64, 4, "bf16", True, 8),
+                         "nemotron_bc": (3, 8192, 8, 128, 4, "bf16", True, 0)}
+
+
+def _glue_bytes(b, s, h, p, k, item, bias=False, groups=1):
     """The least bytes each glue kernel moves: every input read once and
     every output written once (activations ``item`` bytes, the rest
-    float32)."""
-    n, di = b * s * h * p, h * p
-    return {"mamba_conv_silu_fwd": 2 * n * item + di * k * 4,          # xi; xh; w
-            "mamba_conv_silu_bwd": 3 * n * item + 2 * di * k * 4,      # xi, dxh; dxi; w, dw
+    float32; a bias read with the taps and its gradient written with
+    theirs; one rsqrt a row and group)."""
+    n, di, kb = b * s * h * p, h * p, k + bias
+    rows = b * s * max(groups, 1)
+    return {"mamba_conv_silu_fwd": 2 * n * item + di * kb * 4,         # xi; xh; w (bias)
+            "mamba_conv_silu_bwd": 3 * n * item + 2 * di * kb * 4,     # xi, dxh; dxi; w, dw
             # y, xh, z; out; dskip, norm_g; rstd
-            "mamba_gate_norm_fwd": 4 * n * item + (h + di) * 4 + b * s * 4,
+            "mamba_gate_norm_fwd": 4 * n * item + (h + di) * 4 + rows * 4,
             # dout, y, xh, z; dy, dxh, dz; dskip, norm_g and theirs; rstd
-            "mamba_gate_norm_bwd": 7 * n * item + 2 * (h + di) * 4 + b * s * 4}
+            "mamba_gate_norm_bwd": 7 * n * item + 2 * (h + di) * 4 + rows * 4}
 
 
 def _glue_ptxas(dtype):
@@ -1816,12 +1836,15 @@ def kernels_mamba_glue(dev, stats):
 
     ok = True
     eps = 1e-5
-    for form, (b, s, h, p, k, dt) in GLUE_FORMS.items():
+    forms = {**{f: v + (False, 1) for f, v in GLUE_FORMS.items()}, **GLUE_BIAS_GROUP_FORMS}
+    for form, (b, s, h, p, k, dt, has_bias, groups) in forms.items():
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         di, item = h * p, 2 if dt == "bf16" else 4
         g = torch.Generator(dev).manual_seed(s + h)
         xi = torch.randn((b, s, di), generator=g, device=dev).to(dtype)
         w = torch.randn((di, k), generator=g, device=dev) * 0.1
+        bias = 0.1 * torch.randn((di,), generator=g, device=dev) if has_bias else None
+        gn = max(groups, 1)
         y, xh, dxh = (torch.randn((b * h, s, p), generator=g, device=dev).to(dtype)
                       for _ in range(3))
         z, dout = (torch.randn((b, s, di), generator=g, device=dev).to(dtype) for _ in range(2))
@@ -1829,16 +1852,20 @@ def kernels_mamba_glue(dev, stats):
         norm_g = torch.ones((di,), device=dev) + 0.1 * torch.randn((di,), generator=g,
                                                                    device=dev)
         calls = {
-            "mamba_conv_silu_fwd": lambda: mk.conv_silu_heads(xi, w, h),
-            "mamba_conv_silu_bwd": lambda: mk.conv_silu_heads_bwd(xi, w, dxh),
-            "mamba_gate_norm_fwd": lambda: mk.skip_gate_norm(y, xh, z, dskip, norm_g, eps),
+            "mamba_conv_silu_fwd": lambda: mk.conv_silu_heads(xi, w, h, bias),
+            "mamba_conv_silu_bwd": lambda: mk.conv_silu_heads_bwd(xi, w, dxh, bias),
+            "mamba_gate_norm_fwd": lambda: mk.skip_gate_norm(y, xh, z, dskip, norm_g, eps, gn),
         }
         _, rstd = calls["mamba_gate_norm_fwd"]()
         calls["mamba_gate_norm_bwd"] = lambda: mk.skip_gate_norm_bwd(
-            dout, y, xh, z, dskip, norm_g, rstd)
-        plains = {"mamba_conv_silu_fwd": lambda: ref.conv_silu_heads_ref(xi, w, h),
+            dout, y, xh, z, dskip, norm_g, rstd, gn)
+        plains = {"mamba_conv_silu_fwd": lambda: ref.conv_silu_heads_ref(xi, w, h, bias),
                   "mamba_gate_norm_fwd": lambda: ref.skip_gate_norm_ref(y, xh, z, dskip,
-                                                                        norm_g, eps)}
+                                                                        norm_g, eps, gn)}
+        if not groups:                               # B and C: the conv alone
+            for name in ("mamba_gate_norm_fwd", "mamba_gate_norm_bwd"):
+                calls.pop(name)
+                plains.pop(name, None)
 
         def plain_grads(fn, args, seed_grad):
             leaves = [t.detach().clone().requires_grad_(True) for t in args]
@@ -1850,6 +1877,8 @@ def kernels_mamba_glue(dev, stats):
         checks, errs = {}, {}
         for name, key in (("mamba_conv_silu_fwd", "conv_fwd_ulps"),
                           ("mamba_gate_norm_fwd", "norm_fwd_ulps")):
+            if name not in calls:
+                continue
             got, want = calls[name](), plains[name]()
             got = got[0] if isinstance(got, tuple) else got
             checks[key] = _glue_ulps(got, want, dtype)
@@ -1858,31 +1887,35 @@ def kernels_mamba_glue(dev, stats):
         one, two = calls["mamba_conv_silu_bwd"](), calls["mamba_conv_silu_bwd"]()
         repeat = all(bool(torch.equal(a, c)) for a, c in zip(one, two))
         del two
-        want = plain_grads(lambda a, c: ref.conv_silu_heads_ref(a, c, h), (xi, w), dxh)
-        checks["conv_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(("dxi", "dw"),
-                                                                          one, want)}
+        conv_args = (xi, w) if bias is None else (xi, w, bias)
+        want = plain_grads(lambda a, c, *bb: ref.conv_silu_heads_ref(a, c, h, *bb), conv_args,
+                           dxh)
+        checks["conv_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(
+            ("dxi", "dw", "dbias"), one, want)}
         errs["mamba_conv_silu_bwd"] = max(_glue_abs(a, c) for a, c in zip(one, want))
         del one, want
-        one, two = calls["mamba_gate_norm_bwd"](), calls["mamba_gate_norm_bwd"]()
-        repeat &= all(bool(torch.equal(a, c)) for a, c in zip(one, two))
-        del two
-        want = plain_grads(lambda *a: ref.skip_gate_norm_ref(*a, eps),
-                           (y, xh, z, dskip, norm_g), dout)
-        checks["norm_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(
-            ("dy", "dxh", "dz", "ddskip", "dnorm_g"), one, want)}
-        errs["mamba_gate_norm_bwd"] = max(_glue_abs(a, c) for a, c in zip(one, want))
-        del one, want
+        if groups:
+            one, two = calls["mamba_gate_norm_bwd"](), calls["mamba_gate_norm_bwd"]()
+            repeat &= all(bool(torch.equal(a, c)) for a, c in zip(one, two))
+            del two
+            want = plain_grads(lambda *a: ref.skip_gate_norm_ref(*a, eps, gn),
+                               (y, xh, z, dskip, norm_g), dout)
+            checks["norm_grad_rel"] = {nm: _glue_rel(a, c) for nm, a, c in zip(
+                ("dy", "dxh", "dz", "ddskip", "dnorm_g"), one, want)}
+            errs["mamba_gate_norm_bwd"] = max(_glue_abs(a, c) for a, c in zip(one, want))
+            del one, want
         torch.cuda.synchronize()
         fwd_bar, grad_bar = (1, 1e-2) if dt == "bf16" else (8, 1e-5)
-        good = (checks["conv_fwd_ulps"] <= fwd_bar and checks["norm_fwd_ulps"] <= fwd_bar
+        good = (checks["conv_fwd_ulps"] <= fwd_bar
+                and checks.get("norm_fwd_ulps", 0) <= fwd_bar
                 and max(checks["conv_grad_rel"].values()) <= grad_bar
-                and max(checks["norm_grad_rel"].values()) <= grad_bar and repeat)
-        bytes_ = _glue_bytes(b, s, h, p, k, item)
+                and max(checks.get("norm_grad_rel", {"": 0}).values()) <= grad_bar and repeat)
+        bytes_ = _glue_bytes(b, s, h, p, k, item, has_bias, groups)
         ptxas = _glue_ptxas(dt)
         for name, call in calls.items():
             bound, by = _bound(bytes_[name], 0, 4)
             rec = {"kernel": name, "form": form, "shape": form, "B": b, "S": s, "H": h, "P": p,
-                   "K": k, "dtype": dt, "ms": cuda_ms(call, reps=5),
+                   "K": k, "dtype": dt, "bias": has_bias, "groups": groups, "ms": cuda_ms(call, reps=5),
                    "kernel_ms": launch_ms(call, reps=5), "bound_ms": bound, "bound_by": by,
                    "bytes": bytes_[name], "library_ms": None,
                    "plain_ms": cuda_ms(plains[name], reps=2) if name in plains else None,
@@ -1893,8 +1926,130 @@ def kernels_mamba_glue(dev, stats):
             stats["forms"].append(rec)
             say("kernels", **rec)
         ok &= good
-        del xi, w, y, xh, dxh, z, dout, dskip, norm_g, rstd, calls, plains
+        del xi, w, bias, y, xh, dxh, z, dout, dskip, norm_g, rstd, calls, plains
         torch.cuda.empty_cache()
+    return ok
+
+
+#: the dropless expert layer's row moves at Nemotron-3-Nano-30B-A3B's cell:
+#: (form, T tokens (3 x 8,192), k of E experts, d, held experts 0 to held-1),
+#: so about k · held / E = 6 · 8 / 128 of the T·k pairs are live
+MOE_DROPLESS_FORM = ("nemotron_e", 3 * 8192, 6, 128, 2688, 8)
+MOE_DROPLESS_KERNELS = ("moe_gather", "moe_token_sum", "moe_pair_dot")
+#: one E layer's forward and gradient: dispatch (a gather; its gradient a
+#: token sum) and combine (a token sum; its gradient a gather and a pair dot)
+MOE_DROPLESS_LAUNCHES = {"moe_gather": 2, "moe_token_sum": 2, "moe_pair_dot": 1}
+#: the gates' gradient against autograd of the plain combine, both float32
+#: dots over d in another order: relative error in norm
+MOE_DOT_TOL = 1e-5
+
+
+def kernels_moe_dropless(dev, stats):
+    """The dropless layer's row moves (``csrc/moe_dropless.cu``) against
+    their plain statements (``kernels/moe_dropless/ref.py``: ``dispatch_ref``,
+    ``combine_ref`` and autograd of them in float32) at MOE_DROPLESS_FORM,
+    the pairs routed as the model routes them (top-k over all E, the held
+    experts' pairs first by ``moe.sort_pairs``): the live rows of each
+    bfloat16 output within 1 ulp of the plain ones (the dispatch bitwise),
+    the gates' gradient within MOE_DOT_TOL in norm, two calls bitwise
+    equal.  One E layer's forward and gradient through ``ops`` with the
+    three counters zeroed just before must launch MOE_DROPLESS_LAUNCHES.
+    Each kernel in each of its calls alone (``launch_ms``) beside its bytes
+    bound from the live rows: every live row, index and gate read once, and
+    the whole of ``pos`` (which pairs are live)."""
+    import torch
+    from repro_torch.kernels.moe_dropless import kernel as dk
+    from repro_torch.kernels.moe_dropless import ops, ref
+    from repro_torch.models import moe
+
+    form, t, k, e, d, held = MOE_DROPLESS_FORM
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(dev).manual_seed(t + d)
+    scores = torch.rand((t, e), generator=g, device=dev)
+    experts = scores.topk(k, dim=-1).indices
+    gates = scores.gather(-1, experts)
+    gates = 2.5 * gates / gates.sum(-1, keepdim=True)
+    order, pos, _, _, count = moe.sort_pairs(experts, 0, held)
+    tok = order // k
+    live = int(count)
+    tokens_live = int(torch.unique(tok[:live]).numel())
+    xs, dout = (torch.randn((t, d), generator=g, device=dev).to(bf16) for _ in range(2))
+    y_rows, drows = (torch.randn((t * k, d), generator=g, device=dev).to(bf16)
+                     for _ in range(2))
+    g_rows = gates.reshape(-1).index_select(0, order)
+
+    def plain_grads(fn, args, seed_grad):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, seed_grad)
+
+    calls = {  # (kernel, shape) -> (the call, its plain result, rows compared)
+        ("moe_gather", "dispatch"): (
+            lambda: dk.gather(xs, tok, count, t * k),
+            ref.dispatch_ref(xs, order, pos, count), live),
+        ("moe_token_sum", "dispatch_bwd"): (
+            lambda: dk.token_sum(drows, pos, count),
+            plain_grads(lambda a: ref.dispatch_ref(a, order, pos, count),
+                        (xs.to(f32),), drows.to(f32))[0].to(bf16), t),
+        ("moe_token_sum", "combine"): (
+            lambda: dk.token_sum(y_rows, pos, count, gates),
+            ref.combine_ref(y_rows, gates, order, pos, count), t),
+    }
+    want_dy, want_dg = plain_grads(lambda a, b: ref.combine_ref(a, b, order, pos, count),
+                                   (y_rows, gates), dout)
+    calls[("moe_gather", "combine_bwd")] = (
+        lambda: dk.gather(dout, tok, count, t * k, g_rows), want_dy, live)
+    calls[("moe_pair_dot", "combine_bwd")] = (
+        lambda: dk.pair_dot(dout, y_rows, pos, count), want_dg, t)
+    plains = {"dispatch": lambda: ref.dispatch_ref(xs, order, pos, count),
+              "combine": lambda: ref.combine_ref(y_rows, gates, order, pos, count)}
+    item, pos_b = 2, t * k * 8
+    bytes_ = {"dispatch": live * (2 * d * item + 8),
+              "dispatch_bwd": pos_b + live * d * item + t * d * item,
+              "combine": pos_b + live * (d * item + 4) + t * d * item,
+              ("moe_gather", "combine_bwd"): live * (2 * d * item + 8 + 4),
+              ("moe_pair_dot", "combine_bwd"): pos_b + (tokens_live + live) * d * item
+              + t * k * 4}
+
+    _reset_counters()
+    leaves = [a.detach().clone().requires_grad_(True) for a in (xs, y_rows, gates)]
+    with torch.enable_grad():
+        outs = (ops.dispatch(leaves[0], order, pos, count),
+                ops.combine(leaves[1], leaves[2], order, pos, count))
+        torch.autograd.backward(outs, (drows, dout))
+    torch.cuda.synchronize()
+    launches = {name: _read_counters()[name] for name in MOE_DROPLESS_KERNELS}
+    stats["launches"].update(launches)
+    ok = launches == MOE_DROPLESS_LAUNCHES
+    del leaves, outs
+    for (name, shape), (call, want, rows) in calls.items():
+        one, two = call(), call()          # the gathers leave the rows past count unwritten
+        repeat = bool(torch.equal(one[:rows], two[:rows]))
+        got, want = one[:rows], want[:rows]
+        if name == "moe_pair_dot":
+            checks = {"rel": _glue_rel(got, want)}
+            good = checks["rel"] <= MOE_DOT_TOL
+        else:
+            checks = {"ulps": _glue_ulps(got, want, bf16),
+                      "bitwise": bool(torch.equal(got, want))}
+            good = checks["bitwise"] if shape == "dispatch" else checks["ulps"] <= 1
+        good &= repeat
+        moved = bytes_.get((name, shape), bytes_.get(shape))
+        bound, by = _bound(moved, 0, 4)
+        rec = {"kernel": name, "form": form, "shape": shape, "T": t, "k": k, "E": e,
+               "d": d, "held": held, "live_pairs": live, "live_tokens": tokens_live,
+               "dtype": "bf16", "ms": cuda_ms(call, reps=5),
+               "kernel_ms": launch_ms(call, reps=5), "bound_ms": bound, "bound_by": by,
+               "bytes": moved, "library_ms": None,
+               "plain_ms": cuda_ms(plains[shape], reps=2) if shape in plains else None,
+               "checks": checks, "bitwise_repeat": repeat, "within_tolerance": good,
+               "max_abs_err": _glue_abs(got, want), "launches_one_layer": launches}
+        rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        stats["forms"].append(rec)
+        say("kernels", **rec)
+        ok &= good
+        del one, two, got, want
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -2056,6 +2211,7 @@ def _counters():
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.islip import kernel as ik
     from repro_torch.kernels.mamba_glue import kernel as mk
+    from repro_torch.kernels.moe_dropless import kernel as dk
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.netsim import kernel as nk
     from repro_torch.kernels.switch_loop import kernel as slk
@@ -2082,7 +2238,10 @@ def _counters():
             "mamba_conv_silu_fwd": (mk, "CONV_LAUNCHES"),
             "mamba_conv_silu_bwd": (mk, "CONV_BWD_LAUNCHES"),
             "mamba_gate_norm_fwd": (mk, "NORM_LAUNCHES"),
-            "mamba_gate_norm_bwd": (mk, "NORM_BWD_LAUNCHES")}
+            "mamba_gate_norm_bwd": (mk, "NORM_BWD_LAUNCHES"),
+            "moe_gather": (dk, "GATHER_LAUNCHES"),
+            "moe_token_sum": (dk, "TOKEN_SUM_LAUNCHES"),
+            "moe_pair_dot": (dk, "PAIR_DOT_LAUNCHES")}
 
 
 def _reset_counters():
@@ -4258,6 +4417,14 @@ KERNELS = {
               "replaces": "src/repro/models/mamba2.py apply_mamba (XLA-fused glue; "
                           "no Pallas kernel)",
               "main": ("mamba_train", None)} for name in GLUE_KERNELS},
+    # the dropless expert layer's row moves (Nemotron-3-Nano's E layers; the
+    # launches are one layer's forward and gradient); the reference has no
+    # dropless layer
+    **{name: {"source": "src/repro_torch/csrc/moe_dropless.cu",
+              "replaces": "none (the JAX package has no dropless expert layer)",
+              "main": ("nemotron_e", shape)}
+       for name, shape in (("moe_gather", "dispatch"), ("moe_token_sum", "combine"),
+                           ("moe_pair_dot", "combine_bwd"))},
     # stage 4 with use_kernel="off" (the goldens' off runs): hft's shape, a
     # batch of mixed sized depths; the reference runs it as a lax.scan (no
     # Pallas counterpart)

@@ -8,20 +8,24 @@
 // most of them in float32; these kernels are the port's own, added because
 // that glue took most of a mamba2-780m training step.
 //
-//   conv_silu_heads  xh[b·H + h, t, p] = rnd(silu(sum_j xi[b, t - j, c] · w[c, j])),
-//                    c = h·P + p: the K-tap causal depthwise conv in float32,
-//                    taps summed j = K-1 down to 0 as _causal_conv sums them
-//                    (from a zero row before the sequence), SiLU in float32,
-//                    one rounding to the activation dtype, written straight
-//                    into the SSD scan's [B·H, S, P] layout.
+//   conv_silu_heads  xh[b·H + h, t, p] = rnd(silu(sum_j xi[b, t - j, c] · w[c, j]
+//                    + bias[c])), c = h·P + p: the K-tap causal depthwise conv
+//                    in float32, taps summed j = K-1 down to 0 as _causal_conv
+//                    sums them (from a zero row before the sequence), the bias
+//                    (where the mixer has one) added after them, SiLU in
+//                    float32, one rounding to the activation dtype, written
+//                    straight into the SSD scan's [B·H, S, P] layout.
 //   skip_gate_norm   v = (y + xh · D[h]) · silu(z),
-//                    out[b, t, c] = rnd((v · rsqrt(mean_c(v²) + eps)) · g[c]),
-//                    in float32 with one rounding, in token order [B, S, di]
-//                    for the out-projection; each row's rsqrt is kept (float32).
+//                    out[b, t, c] = rnd((v · rsqrt(mean_{c in G}(v²) + eps)) · g[c]),
+//                    the mean over c's group G of di / groups channels (one
+//                    group: the whole row), in float32 with one rounding, in
+//                    token order [B, S, di] for the out-projection; each row's
+//                    and group's rsqrt is kept (float32).
 //
 // The gradients recompute each forward in registers from the saved inputs
 // (and the rows' rsqrt): the conv's writes dxi = sum_j dpre[t + j] · w[j]
-// with dpre = dxh · silu'(pre), and dw[c, j] = sum_{b,t} dpre[t] · xi[t - j];
+// with dpre = dxh · silu'(pre), dw[c, j] = sum_{b,t} dpre[t] · xi[t - j] and
+// dbias[c] = sum_{b,t} dpre[t];
 // the gate norm's writes dy (the scan's incoming gradient, in its dtype),
 // xh's skip term du · D, dz, and the sums dD[h] and dg[c].  The sums over rows
 // go to per-block partials in fixed places and a second launch
@@ -39,8 +43,8 @@
 // The conv walks a tile of rows with the K-1 rows before it (its halo) in
 // registers, reading each row once and fetching two rows ahead; its gradient
 // walks K-1 rows past its tile.  The gate norm takes one token row at a time
-// across a block (the mean is a block sum: a warp butterfly, then the warps
-// in order); its gradient accumulates dg and dD for its rows in registers and
+// across a block (the mean is a sum over the group's warps: a warp butterfly,
+// then those warps in order); its gradient accumulates dg and dD for its rows in registers and
 // fetches the next row before the current row's block sum.
 
 // Each launcher returns 0, a CUDA error, or REFUSED (-1) for a form the
@@ -175,17 +179,23 @@ __device__ __forceinline__ void conv_row(const Pack<T, V> (&win)[K], const float
 }
 
 // grid (ceil(di / (V·CONV_THREADS)), ceil(S / CONV_ROWS), B): a thread
-// takes V channels of one sequence over its block's rows
-template <typename T, int K, int V>
+// takes V channels of one sequence over its block's rows; BIAS: the conv
+// adds bias[c] (float32) after its taps
+template <typename T, int K, int V, bool BIAS>
 __global__ void __launch_bounds__(CONV_THREADS)
-mamba_conv_silu_fwd(const T* __restrict__ xi, const float* __restrict__ w, T* __restrict__ xh,
-                    int s, int di, int p) {
+mamba_conv_silu_fwd(const T* __restrict__ xi, const float* __restrict__ w,
+                    const float* __restrict__ bias, T* __restrict__ xh, int s, int di, int p) {
   const int c0 = (blockIdx.x * CONV_THREADS + threadIdx.x) * V;
   if (c0 >= di) return;
   const int b = blockIdx.z, h = c0 / p, heads = di / p;
   const int t0 = blockIdx.y * CONV_ROWS, t1 = min(t0 + CONV_ROWS, s);
   float wk[K][V];
   load_taps<K, V>(w, c0, wk);
+  float bk[V];
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) bk[e] = bias[c0 + e];
+  }
   const T* src = xi + (size_t)b * s * di + c0;
   T* dst = xh + (size_t)(b * heads + h) * s * p + (c0 - h * p);
   using P = Pack<T, V>;
@@ -202,6 +212,10 @@ mamba_conv_silu_fwd(const T* __restrict__ xi, const float* __restrict__ w, T* __
     if (t + 2 < t1) next1 = fetch<V>(src + (size_t)(t + 2) * di);
     float acc[V];
     conv_row<T, K, V>(win, wk, acc);
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = acc[e] + bk[e];
+    }
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = silu(acc[e]);
     store<V>(dst + (size_t)t * p, acc);
@@ -211,12 +225,14 @@ mamba_conv_silu_fwd(const T* __restrict__ xi, const float* __restrict__ w, T* __
 }
 
 // grid (ceil(di / (V·CONV_THREADS)), ceil(S / CONV_BWD_ROWS), B): rows
-// t0..t1-1 of dxi and this block's dw partial, part[(b·gridDim.y + y), c, j]
-template <typename T, int K, int V>
+// t0..t1-1 of dxi and this block's dw partial, part[(b·gridDim.y + y), c, j],
+// j < K; BIAS: the forward's bias and dbias's partial at j = K
+template <typename T, int K, int V, bool BIAS>
 __global__ void __launch_bounds__(CONV_THREADS)
 mamba_conv_silu_bwd(const T* __restrict__ xi, const float* __restrict__ w,
-                    const T* __restrict__ dxh, T* __restrict__ dxi, float* __restrict__ part,
-                    int s, int di, int p) {
+                    const float* __restrict__ bias, const T* __restrict__ dxh,
+                    T* __restrict__ dxi, float* __restrict__ part, int s, int di, int p) {
+  constexpr int KS = K + (BIAS ? 1 : 0);           // partials a channel
   const int c0 = (blockIdx.x * CONV_THREADS + threadIdx.x) * V;
   if (c0 >= di) return;
   const int b = blockIdx.z, h = c0 / p, heads = di / p;
@@ -232,6 +248,12 @@ mamba_conv_silu_bwd(const T* __restrict__ xi, const float* __restrict__ w,
 #pragma unroll
   for (int j = 1; j < K; ++j)
     win[j] = t0 - j >= 0 ? fetch<V>(src + (size_t)(t0 - j) * di) : P{};
+  float bk[V], db[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    bk[e] = BIAS ? bias[c0 + e] : 0.0f;
+    db[e] = 0.0f;
+  }
   float dp[K][V];                                  // dp[i]: dpre of row u - i
   float dw[K][V];
 #pragma unroll
@@ -254,10 +276,18 @@ mamba_conv_silu_bwd(const T* __restrict__ xi, const float* __restrict__ w,
       }
       float pre[V], g[V];
       conv_row<T, K, V>(win, wk, pre);
+      if constexpr (BIAS) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) pre[e] = pre[e] + bk[e];
+      }
       unpack(gr, g);
 #pragma unroll
       for (int e = 0; e < V; ++e) dp[0][e] = silu_grad(g[e], pre[e]);
       if (u < t1) {                                // the tile's own rows feed dw
+        if constexpr (BIAS) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) db[e] = db[e] + dp[0][e];
+        }
 #pragma unroll
         for (int j = 0; j < K; ++j) {
           float x[V];
@@ -285,36 +315,65 @@ mamba_conv_silu_bwd(const T* __restrict__ xi, const float* __restrict__ w,
       store<V>(dst + (size_t)t * di, out);
     }
   }
-  float* q = part + ((size_t)(b * gridDim.y + blockIdx.y) * di + c0) * K;
+  float* q = part + ((size_t)(b * gridDim.y + blockIdx.y) * di + c0) * KS;
 #pragma unroll
-  for (int e = 0; e < V; ++e)
+  for (int e = 0; e < V; ++e) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) q[e * K + j] = dw[j][e];
+    for (int j = 0; j < K; ++j) q[e * KS + j] = dw[j][e];
+    if constexpr (BIAS) q[e * KS + K] = db[e];
+  }
 }
 
-// the sum of x over the block, the same bits in every thread: a butterfly in
-// each warp, then the warps' sums in order (red: 32 floats, alternated
-// between calls so that one barrier a call suffices)
-__device__ __forceinline__ float block_sum(float x, float* red) {
+// the sum of x over the nw warps from warp w0 on (a thread's group), the
+// same bits in every thread of them: a butterfly in each warp, then the
+// warps' sums in order (red: 32 floats, alternated between calls so that one
+// barrier a call suffices)
+__device__ __forceinline__ float group_sum(float x, float* red, int w0, int nw) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(FULL, x, m);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
   __syncthreads();
-  float s = red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) s += red[i];
+  float s = red[w0];
+  for (int i = 1; i < nw; ++i) s += red[w0 + i];
   return s;
 }
 
+// a gate-norm thread's group of channels, its first warp and its warps: one
+// group (GROUPED false, the form compiled as before groups) takes the whole
+// block; more take gs / VEC threads each, whole warps
+template <bool GROUPED>
+struct NormGroup {
+  int g, w0, nw;
+  __device__ NormGroup(int c, int gs, int groups) {
+    if constexpr (GROUPED) {
+      nw = gs / (VEC * 32);
+      g = min(c / gs, groups - 1);
+      w0 = g * nw;
+    } else {
+      nw = (int)(blockDim.x >> 5);
+      g = 0;
+      w0 = 0;
+    }
+  }
+  // where the row's rsqrt for this group lies, and whether this thread writes it
+  __device__ size_t at(int r, int groups) const {
+    return GROUPED ? (size_t)r * groups + g : (size_t)r;
+  }
+  __device__ bool writes(int c, int gs) const { return GROUPED ? c == g * gs : threadIdx.x == 0; }
+};
+
 // grid ceil(B·S / NORM_ROWS), blockDim ceil(di / VEC) rounded up to a warp:
-// thread i takes channels c = VEC·i .. c + VEC - 1 of each of its rows
-template <typename T>
+// thread i takes channels c = VEC·i .. c + VEC - 1 of each of its rows, in
+// group c / gs of gs = di / groups channels (rstd[row·groups + group])
+template <typename T, bool GROUPED>
 __global__ void __launch_bounds__(NORM_MAX_THREADS)
 mamba_gate_norm_fwd(const T* __restrict__ y, const T* __restrict__ xh, const T* __restrict__ z,
                     const float* __restrict__ dskip, const float* __restrict__ g,
                     T* __restrict__ out, float* __restrict__ rstd,
-                    int rows, int s, int di, int p, float inv_di, float eps) {
+                    int rows, int s, int di, int p, int groups, float inv_gs, float eps) {
   __shared__ float red[2][32];
-  const int heads = di / p, c = threadIdx.x * VEC;
+  const int heads = di / p, c = threadIdx.x * VEC, gs = GROUPED ? di / groups : di;
+  const NormGroup<GROUPED> grp(c, gs, groups);
   const bool on = c < di;                          // lanes past di add 0 to the sums
   const int h = on ? c / p : 0, hp = c - h * p;
   float gk[VEC], dk = 0.0f;
@@ -339,9 +398,9 @@ mamba_gate_norm_fwd(const T* __restrict__ y, const T* __restrict__ xh, const T* 
         ss = ss + v[e] * v[e];
       }
     }
-    ss = block_sum(ss, red[(r - r0) & 1]);
-    const float rs = rsqrtf(ss * inv_di + eps);
-    if (threadIdx.x == 0) rstd[r] = rs;
+    ss = group_sum(ss, red[(r - r0) & 1], grp.w0, grp.nw);
+    const float rs = rsqrtf(ss * inv_gs + eps);
+    if (grp.writes(c, gs)) rstd[grp.at(r, groups)] = rs;
     if (on) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) v[e] = (v[e] * rs) * gk[e];
@@ -353,19 +412,20 @@ mamba_gate_norm_fwd(const T* __restrict__ y, const T* __restrict__ xh, const T* 
 // grid ceil(B·S / NORM_BWD_ROWS), threads as the forward's: dy, the skip term
 // of dxh, dz for the block's rows; its partials pg[block, c] of dg and
 // pd[block, c / VEC] of dD
-template <typename T>
+template <typename T, bool GROUPED>
 __global__ void __launch_bounds__(NORM_MAX_THREADS)
 mamba_gate_norm_bwd(const T* __restrict__ dout, const T* __restrict__ y,
                     const T* __restrict__ xh, const T* __restrict__ z,
                     const float* __restrict__ dskip, const float* __restrict__ g,
                     const float* __restrict__ rstd, T* __restrict__ dy, T* __restrict__ dxh,
                     T* __restrict__ dz, float* __restrict__ pg, float* __restrict__ pd,
-                    int rows, int s, int di, int p) {
+                    int rows, int s, int di, int p, int groups) {
   __shared__ float red[2][32];
-  const int heads = di / p, c = threadIdx.x * VEC;
+  const int heads = di / p, c = threadIdx.x * VEC, gs = GROUPED ? di / groups : di;
+  const NormGroup<GROUPED> grp(c, gs, groups);
   const bool on = c < di;
   const int h = on ? c / p : 0, hp = c - h * p;
-  const float di_f = (float)di;
+  const float gs_f = (float)gs;
   float gk[VEC], ag[VEC], dk = 0.0f, ad = 0.0f;
 #pragma unroll
   for (int e = 0; e < VEC; ++e) ag[e] = 0.0f;
@@ -391,7 +451,7 @@ mamba_gate_norm_bwd(const T* __restrict__ dout, const T* __restrict__ y,
   if (on && r0 < r1) fetch_row(r0);
   for (int r = r0; r < r1; ++r) {
     const int b = r / s, t = r - b * s;
-    const float rs = rstd[r];
+    const float rs = rstd[grp.at(r, groups)];
     py = ny; px = nx; pz = nz; po = no;
     if (on && r + 1 < r1) fetch_row(r + 1);
     // silu(z) = z / den and its gradient's s = 1 / den, as PyTorch forms them
@@ -408,10 +468,10 @@ mamba_gate_norm_bwd(const T* __restrict__ dout, const T* __restrict__ y,
         dot = dot + (ov[e] * gk[e]) * v;
       }
     }
-    dot = block_sum(dot, red[(r - r0) & 1]);
+    dot = group_sum(dot, red[(r - r0) & 1], grp.w0, grp.nw);
     if (!on) continue;
-    // rsqrt's gradient -0.5·grad·r³, the mean's 1/di, v·v's two terms
-    const float cm = ((-0.5f * dot) * (rs * rs * rs)) / di_f;
+    // rsqrt's gradient -0.5·grad·r³, the mean's 1/gs, v·v's two terms
+    const float cm = ((-0.5f * dot) * (rs * rs * rs)) / gs_f;
     const size_t hoff = ((size_t)(b * heads + h) * s + t) * p + hp;
     const size_t toff = (size_t)r * di + c;
     float yv[VEC], xv[VEC], zv[VEC], ov[VEC], gy[VEC], gx[VEC], gz[VEC];
@@ -470,7 +530,8 @@ inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // what a launcher returns for a form the kernels do not take, before any
 // launch: P not a multiple of VEC, more than MAX_TAPS taps, di past
-// NORM_MAX_THREADS·VEC, or a grid past its limits
+// NORM_MAX_THREADS·VEC, groups of channels that are not whole warps of the
+// gate norm's threads, or a grid past its limits
 constexpr int REFUSED = -1;
 
 bool form_ok(int b, int s, int di, int p) {
@@ -484,28 +545,49 @@ int colsum(const float* part, float* out, int rows, int n, int inner, cudaStream
   return int(cudaGetLastError());
 }
 
+template <typename T, bool BIAS>
+void conv_fwd_launch(int k, dim3 grid, cudaStream_t st, const T* x, const float* wf,
+                     const float* bf, T* o, int s, int di, int p) {
+  constexpr int V = CONV_VEC;
+  switch (k) {
+    case 1: mamba_conv_silu_fwd<T, 1, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, o, s, di, p); break;
+    case 2: mamba_conv_silu_fwd<T, 2, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, o, s, di, p); break;
+    case 3: mamba_conv_silu_fwd<T, 3, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, o, s, di, p); break;
+    default: mamba_conv_silu_fwd<T, 4, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, o, s, di, p); break;
+  }
+}
+
 template <typename T>
-int conv_fwd(const void* xi, const void* w, void* xh, int b, int s, int di, int p, int k,
-             cudaStream_t st) {
+int conv_fwd(const void* xi, const void* w, const void* bias, void* xh, int b, int s, int di,
+             int p, int k, cudaStream_t st) {
   constexpr int V = CONV_VEC;
   if (!form_ok(b, s, di, p) || k < 1 || k > MAX_TAPS || s > 65535 * CONV_ROWS) return REFUSED;
   const dim3 grid(cdiv(di, V * CONV_THREADS), cdiv(s, CONV_ROWS), b);
   const T* x = static_cast<const T*>(xi);
   const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
   T* o = static_cast<T*>(xh);
-  switch (k) {
-    case 1: mamba_conv_silu_fwd<T, 1, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, o, s, di, p); break;
-    case 2: mamba_conv_silu_fwd<T, 2, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, o, s, di, p); break;
-    case 3: mamba_conv_silu_fwd<T, 3, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, o, s, di, p); break;
-    case 4: mamba_conv_silu_fwd<T, 4, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, o, s, di, p); break;
-    default: return REFUSED;
-  }
+  if (bf) conv_fwd_launch<T, true>(k, grid, st, x, wf, bf, o, s, di, p);
+  else conv_fwd_launch<T, false>(k, grid, st, x, wf, bf, o, s, di, p);
   return int(cudaGetLastError());
 }
 
+template <typename T, bool BIAS>
+void conv_bwd_launch(int k, dim3 grid, cudaStream_t st, const T* x, const float* wf,
+                     const float* bf, const T* g, T* o, float* pt, int s, int di, int p) {
+  constexpr int V = CONV_VEC;
+  switch (k) {
+    case 1: mamba_conv_silu_bwd<T, 1, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, g, o, pt, s, di, p); break;
+    case 2: mamba_conv_silu_bwd<T, 2, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, g, o, pt, s, di, p); break;
+    case 3: mamba_conv_silu_bwd<T, 3, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, g, o, pt, s, di, p); break;
+    default: mamba_conv_silu_bwd<T, 4, V, BIAS><<<grid, CONV_THREADS, 0, st>>>(x, wf, bf, g, o, pt, s, di, p); break;
+  }
+}
+
+// dw: [di, K] float32, or with a bias [di, K + 1], dbias in the last column
 template <typename T>
-int conv_bwd(const void* xi, const void* w, const void* dxh, void* dxi, void* dw, void* part,
-             int b, int s, int di, int p, int k, cudaStream_t st) {
+int conv_bwd(const void* xi, const void* w, const void* bias, const void* dxh, void* dxi,
+             void* dw, void* part, int b, int s, int di, int p, int k, cudaStream_t st) {
   constexpr int V = CONV_VEC;
   if (!form_ok(b, s, di, p) || k < 1 || k > MAX_TAPS || s > 65535 * CONV_BWD_ROWS) {
     return REFUSED;
@@ -513,52 +595,60 @@ int conv_bwd(const void* xi, const void* w, const void* dxh, void* dxi, void* dw
   const dim3 grid(cdiv(di, V * CONV_THREADS), cdiv(s, CONV_BWD_ROWS), b);
   const T* x = static_cast<const T*>(xi);
   const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
   const T* g = static_cast<const T*>(dxh);
   T* o = static_cast<T*>(dxi);
   float* pt = static_cast<float*>(part);
-  switch (k) {
-    case 1: mamba_conv_silu_bwd<T, 1, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, g, o, pt, s, di, p); break;
-    case 2: mamba_conv_silu_bwd<T, 2, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, g, o, pt, s, di, p); break;
-    case 3: mamba_conv_silu_bwd<T, 3, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, g, o, pt, s, di, p); break;
-    case 4: mamba_conv_silu_bwd<T, 4, V><<<grid, CONV_THREADS, 0, st>>>(x, wf, g, o, pt, s, di, p); break;
-    default: return REFUSED;
-  }
+  if (bf) conv_bwd_launch<T, true>(k, grid, st, x, wf, bf, g, o, pt, s, di, p);
+  else conv_bwd_launch<T, false>(k, grid, st, x, wf, bf, g, o, pt, s, di, p);
   const int code = int(cudaGetLastError());
   if (code) return code;
-  return colsum(pt, static_cast<float*>(dw), b * grid.y, di * k, 1, st);
+  return colsum(pt, static_cast<float*>(dw), b * grid.y, di * (k + (bf ? 1 : 0)), 1, st);
 }
 
 // a gate-norm block's threads: one a group of VEC channels, whole warps
 int norm_threads(int di) { return (di / VEC + 31) / 32 * 32; }
 
+// one group, or groups of whole warps of threads
+bool groups_ok(int di, int groups) {
+  return groups == 1 || (groups > 1 && di % groups == 0 && (di / groups) % (VEC * 32) == 0);
+}
+
 template <typename T>
 int norm_fwd(const void* y, const void* xh, const void* z, const void* dskip, const void* g,
-             void* out, void* rstd, int b, int s, int di, int p, float eps, cudaStream_t st) {
+             void* out, void* rstd, int b, int s, int di, int p, int groups, float eps,
+             cudaStream_t st) {
   const int threads = norm_threads(di);
-  if (!form_ok(b, s, di, p) || threads > NORM_MAX_THREADS) return REFUSED;
+  if (!form_ok(b, s, di, p) || threads > NORM_MAX_THREADS || !groups_ok(di, groups)) {
+    return REFUSED;
+  }
   const int rows = b * s;
-  const float inv_di = 1.0f / (float)di;
-  mamba_gate_norm_fwd<T><<<cdiv(rows, NORM_ROWS), threads, 0, st>>>(
+  const float inv_gs = 1.0f / (float)(di / groups);
+  auto kernel = groups > 1 ? mamba_gate_norm_fwd<T, true> : mamba_gate_norm_fwd<T, false>;
+  kernel<<<cdiv(rows, NORM_ROWS), threads, 0, st>>>(
       static_cast<const T*>(y), static_cast<const T*>(xh), static_cast<const T*>(z),
       static_cast<const float*>(dskip), static_cast<const float*>(g), static_cast<T*>(out),
-      static_cast<float*>(rstd), rows, s, di, p, inv_di, eps);
+      static_cast<float*>(rstd), rows, s, di, p, groups, inv_gs, eps);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int norm_bwd(const void* dout, const void* y, const void* xh, const void* z, const void* dskip,
              const void* g, const void* rstd, void* dy, void* dxh, void* dz, void* ddskip,
-             void* dg, void* part, int b, int s, int di, int p, cudaStream_t st) {
+             void* dg, void* part, int b, int s, int di, int p, int groups, cudaStream_t st) {
   const int threads = norm_threads(di);
-  if (!form_ok(b, s, di, p) || threads > NORM_MAX_THREADS) return REFUSED;
+  if (!form_ok(b, s, di, p) || threads > NORM_MAX_THREADS || !groups_ok(di, groups)) {
+    return REFUSED;
+  }
   const int rows = b * s, blocks = cdiv(rows, NORM_BWD_ROWS);
   float* pg = static_cast<float*>(part);
   float* pd = pg + (size_t)blocks * di;
-  mamba_gate_norm_bwd<T><<<blocks, threads, 0, st>>>(
+  auto kernel = groups > 1 ? mamba_gate_norm_bwd<T, true> : mamba_gate_norm_bwd<T, false>;
+  kernel<<<blocks, threads, 0, st>>>(
       static_cast<const T*>(dout), static_cast<const T*>(y), static_cast<const T*>(xh),
       static_cast<const T*>(z), static_cast<const float*>(dskip), static_cast<const float*>(g),
       static_cast<const float*>(rstd), static_cast<T*>(dy), static_cast<T*>(dxh),
-      static_cast<T*>(dz), pg, pd, rows, s, di, p);
+      static_cast<T*>(dz), pg, pd, rows, s, di, p, groups);
   int code = int(cudaGetLastError());
   if (code) return code;
   code = colsum(pg, static_cast<float*>(dg), blocks, di, 1, st);
@@ -571,56 +661,59 @@ int norm_bwd(const void* dout, const void* y, const void* xh, const void* z, con
 extern "C" {
 
 // float32 words of the partials the two gradients sum: the conv's, one [di,
-// K] a sequence and tile of CONV_BWD_ROWS rows; the gate norm's, dnorm_g's
-// [di] and dD's [di / VEC] a block of NORM_BWD_ROWS token rows
-long long mamba_conv_silu_bwd_scratch(int b, int s, int di, int k) {
-  return (long long)b * cdiv(s, CONV_BWD_ROWS) * di * k;
+// ks] a sequence and tile of CONV_BWD_ROWS rows (ks: K, or K + 1 with a
+// bias); the gate norm's, dnorm_g's [di] and dD's [di / VEC] a block of
+// NORM_BWD_ROWS token rows
+long long mamba_conv_silu_bwd_scratch(int b, int s, int di, int ks) {
+  return (long long)b * cdiv(s, CONV_BWD_ROWS) * di * ks;
 }
 
 long long mamba_gate_norm_bwd_scratch(int b, int s, int di) {
   return (long long)cdiv((long long)b * s, NORM_BWD_ROWS) * (di + di / VEC);
 }
 
-// xi [B, S, di], w [di, K] float32 -> xh [B·H, S, P] (H = di / P)
-int mamba_conv_silu_fwd_bf16(const void* xi, const void* w, void* xh, int b, int s, int di,
-                             int p, int k, void* stream) {
-  return conv_fwd<__nv_bfloat16>(xi, w, xh, b, s, di, p, k, static_cast<cudaStream_t>(stream));
-}
-
-int mamba_conv_silu_fwd_f32(const void* xi, const void* w, void* xh, int b, int s, int di,
-                            int p, int k, void* stream) {
-  return conv_fwd<float>(xi, w, xh, b, s, di, p, k, static_cast<cudaStream_t>(stream));
-}
-
-// + dxh [B·H, S, P] -> dxi [B, S, di], dw [di, K] float32; part:
-// mamba_conv_silu_bwd_scratch floats
-int mamba_conv_silu_bwd_bf16(const void* xi, const void* w, const void* dxh, void* dxi,
-                             void* dw, void* part, int b, int s, int di, int p, int k,
-                             void* stream) {
-  return conv_bwd<__nv_bfloat16>(xi, w, dxh, dxi, dw, part, b, s, di, p, k,
+// xi [B, S, di], w [di, K] float32, bias [di] float32 or null -> xh [B·H, S, P]
+// (H = di / P)
+int mamba_conv_silu_fwd_bf16(const void* xi, const void* w, const void* bias, void* xh, int b,
+                             int s, int di, int p, int k, void* stream) {
+  return conv_fwd<__nv_bfloat16>(xi, w, bias, xh, b, s, di, p, k,
                                  static_cast<cudaStream_t>(stream));
 }
 
-int mamba_conv_silu_bwd_f32(const void* xi, const void* w, const void* dxh, void* dxi,
-                            void* dw, void* part, int b, int s, int di, int p, int k,
+int mamba_conv_silu_fwd_f32(const void* xi, const void* w, const void* bias, void* xh, int b,
+                            int s, int di, int p, int k, void* stream) {
+  return conv_fwd<float>(xi, w, bias, xh, b, s, di, p, k, static_cast<cudaStream_t>(stream));
+}
+
+// + dxh [B·H, S, P] -> dxi [B, S, di], dw [di, K] float32 ([di, K + 1] with a
+// bias, dbias last); part: mamba_conv_silu_bwd_scratch floats
+int mamba_conv_silu_bwd_bf16(const void* xi, const void* w, const void* bias, const void* dxh,
+                             void* dxi, void* dw, void* part, int b, int s, int di, int p, int k,
+                             void* stream) {
+  return conv_bwd<__nv_bfloat16>(xi, w, bias, dxh, dxi, dw, part, b, s, di, p, k,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int mamba_conv_silu_bwd_f32(const void* xi, const void* w, const void* bias, const void* dxh,
+                            void* dxi, void* dw, void* part, int b, int s, int di, int p, int k,
                             void* stream) {
-  return conv_bwd<float>(xi, w, dxh, dxi, dw, part, b, s, di, p, k,
+  return conv_bwd<float>(xi, w, bias, dxh, dxi, dw, part, b, s, di, p, k,
                          static_cast<cudaStream_t>(stream));
 }
 
 // y, xh [B·H, S, P], z [B, S, di], dskip [H], g [di] float32 -> out [B, S, di],
-// rstd [B·S] float32
+// rstd [B·S·groups] float32
 int mamba_gate_norm_fwd_bf16(const void* y, const void* xh, const void* z, const void* dskip,
                              const void* g, void* out, void* rstd, int b, int s, int di, int p,
-                             float eps, void* stream) {
-  return norm_fwd<__nv_bfloat16>(y, xh, z, dskip, g, out, rstd, b, s, di, p, eps,
+                             int groups, float eps, void* stream) {
+  return norm_fwd<__nv_bfloat16>(y, xh, z, dskip, g, out, rstd, b, s, di, p, groups, eps,
                                  static_cast<cudaStream_t>(stream));
 }
 
 int mamba_gate_norm_fwd_f32(const void* y, const void* xh, const void* z, const void* dskip,
                             const void* g, void* out, void* rstd, int b, int s, int di, int p,
-                            float eps, void* stream) {
-  return norm_fwd<float>(y, xh, z, dskip, g, out, rstd, b, s, di, p, eps,
+                            int groups, float eps, void* stream) {
+  return norm_fwd<float>(y, xh, z, dskip, g, out, rstd, b, s, di, p, groups, eps,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -629,17 +722,17 @@ int mamba_gate_norm_fwd_f32(const void* y, const void* xh, const void* z, const 
 int mamba_gate_norm_bwd_bf16(const void* dout, const void* y, const void* xh, const void* z,
                              const void* dskip, const void* g, const void* rstd, void* dy,
                              void* dxh, void* dz, void* ddskip, void* dg, void* part, int b,
-                             int s, int di, int p, void* stream) {
+                             int s, int di, int p, int groups, void* stream) {
   return norm_bwd<__nv_bfloat16>(dout, y, xh, z, dskip, g, rstd, dy, dxh, dz, ddskip, dg, part,
-                                 b, s, di, p, static_cast<cudaStream_t>(stream));
+                                 b, s, di, p, groups, static_cast<cudaStream_t>(stream));
 }
 
 int mamba_gate_norm_bwd_f32(const void* dout, const void* y, const void* xh, const void* z,
                             const void* dskip, const void* g, const void* rstd, void* dy,
                             void* dxh, void* dz, void* ddskip, void* dg, void* part, int b,
-                            int s, int di, int p, void* stream) {
+                            int s, int di, int p, int groups, void* stream) {
   return norm_bwd<float>(dout, y, xh, z, dskip, g, rstd, dy, dxh, dz, ddskip, dg, part,
-                         b, s, di, p, static_cast<cudaStream_t>(stream));
+                         b, s, di, p, groups, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -38,7 +38,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES = ("xbar", "netsim", "islip", "parser", "quant_pack", "flash_attention",
            "ssd", "switch_loop", "ring_scan", "flash_attention_bwd", "ssd_bwd",
-           "mamba_glue")
+           "mamba_glue", "moe_dropless")
 #: dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

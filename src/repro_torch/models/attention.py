@@ -1,5 +1,6 @@
-"""GQA attention with RoPE / M-RoPE, the blockwise (flash) path, and
-KV-cache decode.
+"""GQA attention with RoPE / M-RoPE (or none: ``use_rope=False``, as
+Nemotron-H's attention layers), the blockwise (flash) path, and KV-cache
+decode.
 
 The port's counterpart of the JAX package's ``models/attention.py``.
 Implementation selection, as in the reference:
@@ -151,7 +152,7 @@ def apply_attention(
     q, k, v = _project(params, x, cfg)
     if cfg.mrope:
         q, k = mrope(q, k, positions, cfg.rope_theta, cfg.mrope_sections)
-    else:
+    elif cfg.use_rope:
         q, k = rope(q, k, positions, cfg.rope_theta)
     impl = impl or cfg.attn_impl
     if impl == "auto":
@@ -197,7 +198,7 @@ def decode_attention(
     q, k_new, v_new = _project(params, x, cfg)      # [B, H, 1, hd]
     if cfg.mrope:
         q, k_new = mrope(q, k_new, positions_q, cfg.rope_theta, cfg.mrope_sections)
-    else:
+    elif cfg.use_rope:
         q, k_new = rope(q, k_new, positions_q, cfg.rope_theta)
     cache_k = _write_cache(cache_k, k_new, pos)
     cache_v = _write_cache(cache_v, v_new, pos)

@@ -35,17 +35,31 @@ class ModelConfig:
     moe_topk: int = 0
     capacity_factor: float = 1.25  # VOQ depth sizing — DSE-tunable
     router: str = "learned_topk"   # FullLookup analogue | "hash" (MultiBankHash)
+    # the dropless expert layer of a layer pattern's E (moe.apply_dropless:
+    # a sigmoid router with a correction bias, the top-k normalised, relu²
+    # experts, a shared expert); the capacity path above reads none of these
+    moe_scale: float = 1.0         # routed scaling factor on the gates
+    moe_shared_ff: int = 0         # width of the always-on shared expert
+    moe_held_first: int = 0        # this device's experts: moe_held from the
+    moe_held: int = 0              # first (0: all moe_experts)
     # --- SSM ---
     ssm_state: int = 0
     ssm_headdim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
+    ssm_nheads: int = 0            # SSM heads (0: d_model·ssm_expand / ssm_headdim)
+    ssm_groups: int = 1            # groups of heads sharing B and C; the gated norm's groups
+    ssm_conv_bc: bool = False      # the causal conv, with a bias, over B and C as well as x
     # --- attention ---
     rope_theta: float = 1e6
     mrope: bool = False                      # qwen2-vl M-RoPE
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     sliding_window: int = 0                  # hybrid long-context attention
     attn_impl: str = "auto"                  # plain | blockwise | auto
+    use_rope: bool = True                    # False: no position encoding (NoPE)
+    # --- layer pattern: one mixer a layer, M (Mamba-2), E (MoE) or *
+    # (attention), each behind its own norm (Nemotron-H); "" -> the family's
+    layer_pattern: str = ""
     # --- IO frontend ---
     frontend: str = "tokens"                 # tokens | embeddings (vlm/audio stub)
     # --- numerics ---
@@ -62,15 +76,31 @@ class ModelConfig:
 
     @property
     def ssm_heads(self) -> int:
-        return (self.d_model * self.ssm_expand) // self.ssm_headdim
+        return self.ssm_nheads or (self.d_model * self.ssm_expand) // self.ssm_headdim
 
     @property
     def ssm_inner(self) -> int:
+        if self.ssm_nheads:
+            return self.ssm_nheads * self.ssm_headdim
         return self.d_model * self.ssm_expand
 
     @property
     def is_moe(self) -> bool:
         return self.moe_experts > 0
+
+    @property
+    def moe_local(self) -> int:
+        """The experts this device holds."""
+        return self.moe_held or self.moe_experts
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        """Each layer's mixer under ``layer_pattern``: mamba, moe or attn."""
+        names = {"M": "mamba", "E": "moe", "*": "attn"}
+        if len(self.layer_pattern) != self.n_layers or set(self.layer_pattern) - set(names):
+            raise ValueError(f"layer_pattern {self.layer_pattern!r} must give one of "
+                             f"M, E, * for each of {self.n_layers} layers")
+        return tuple(names[c] for c in self.layer_pattern)
 
     @property
     def has_attention(self) -> bool:
@@ -86,6 +116,8 @@ class ModelConfig:
 
     # ------------------------------------------------------- parameter counts
     def param_count(self) -> int:
+        if self.layer_pattern:
+            return self._pattern_param_count(active=False)
         d, ff, v = self.d_model, self.d_ff, self.vocab
         per_layer = 0
         if self.has_attention:
@@ -102,8 +134,26 @@ class ModelConfig:
         per_layer += 2 * d                               # norms
         return self.n_layers * per_layer + 2 * v * d     # embed + unembed
 
+    def _pattern_param_count(self, active: bool) -> int:
+        """Parameters under ``layer_pattern`` (the experts this device holds;
+        ``active``: the top-k of them a token uses)."""
+        d, v = self.d_model, self.vocab
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.hd
+        di, gn, hs, k = self.ssm_inner, self.ssm_groups * self.ssm_state, self.ssm_heads, \
+            self.ssm_conv
+        conv = di + (2 * gn if self.ssm_conv_bc else 0)
+        per = {"mamba": d * (2 * di + 2 * gn + hs) + conv * (k + self.ssm_conv_bc)
+               + di * (d + 1) + 3 * hs,
+               "attn": d * hq * hd + 2 * d * hkv * hd + hq * hd * d,
+               "moe": (min(self.moe_topk, self.moe_local) if active else self.moe_local)
+               * 2 * d * self.d_ff + 2 * d * self.moe_shared_ff
+               + (d + 1) * self.moe_experts}
+        return sum(per[kind] + d for kind in self.kinds) + 2 * v * d
+
     def active_param_count(self) -> int:
         """6·N_active·D convention for MoE roofline accounting."""
+        if self.layer_pattern:
+            return self._pattern_param_count(active=True)
         if not self.is_moe:
             return self.param_count()
         d, ff = self.d_model, self.d_ff

@@ -2,7 +2,12 @@
 
 The port's counterpart of the JAX package's ``models/mamba2.py``.
 Projections are stored unpacked (wz/wx/wb/wc/wdt); B and C are shared by a
-sequence's heads (G = 1).  The sequence mix runs through
+sequence's heads (G = 1), or by each of ``ssm_groups`` groups of H / G
+consecutive heads (Nemotron-H: G 8, B and C [B·G, S, N] straight into the
+scan, the gated norm's RMS taken over each group's di / G channels).
+With ``ssm_conv_bc`` the causal conv and SiLU run over B and C too
+(``conv_silu_heads`` with heads = G writes them in the scan's grouped
+layout), and each of the three convs adds its bias.  The sequence mix runs through
 ``kernels.ssd.ssd_chunked``: the hand-written kernel on the card, its plain
 version on the CPU.  The kernel reads B and C once per sequence, where the
 reference broadcasts them H-fold in memory.  The mixer's conv, SiLU,
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_glue
-from repro_torch.kernels.mamba_glue.ref import gated_norm, to_tokens
+from repro_torch.kernels.mamba_glue.ref import gated_norm, to_heads, to_tokens
 from repro_torch.kernels.ssd import ssd_chunked, ssd_decode_step
 from .config import ModelConfig, ShardingPlan
 from .layers import dense_init, matmul
@@ -33,16 +38,29 @@ from .layers import dense_init, matmul
 __all__ = ["init_mamba", "apply_mamba", "init_mamba_state", "decode_mamba"]
 
 
+#: the convs' leaves: (taps, bias) of x, B and C
+_CONVS = {"x": ("conv_w", "conv_b"), "b": ("bconv_w", "bconv_b"), "c": ("cconv_w", "cconv_b")}
+
+
 def init_mamba(gen: torch.Generator, cfg: ModelConfig,
                plan: Optional[ShardingPlan] = None) -> Dict[str, torch.Tensor]:
     del plan
     d, di, n, h = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    gn = cfg.ssm_groups * n
     dev, f32 = gen.device, torch.float32
+    convs = {}
+    if cfg.ssm_conv_bc:                      # taps of B's and C's convs, a bias for all three
+        for part in ("b", "c"):
+            convs[_CONVS[part][0]] = torch.randn((gn, cfg.ssm_conv), generator=gen,
+                                                 dtype=f32, device=dev) * 0.1
+        for part, width in (("x", di), ("b", gn), ("c", gn)):
+            convs[_CONVS[part][1]] = torch.zeros((width,), dtype=f32, device=dev)
     return {
+        **convs,
         "wz": dense_init(gen, (d, di)),
         "wx": dense_init(gen, (d, di)),
-        "wb": dense_init(gen, (d, n)),
-        "wc": dense_init(gen, (d, n)),
+        "wb": dense_init(gen, (d, gn)),
+        "wc": dense_init(gen, (d, gn)),
         "wdt": dense_init(gen, (d, h), dtype=f32),
         "conv_w": torch.randn((di, cfg.ssm_conv), generator=gen, dtype=f32,
                               device=dev) * 0.1,
@@ -58,16 +76,36 @@ def _gated_norm(y, z, params, cfg: ModelConfig, dtype):
     return gated_norm(y, z, params["norm_g"], cfg.norm_eps, dtype)
 
 
+def _conv(params, cfg: ModelConfig, part: str, pre: torch.Tensor, heads: int):
+    """The causal conv and SiLU of ``pre`` [B, S, heads·P], written in the
+    scan's [B·heads, S, P] layout."""
+    w, bias = _CONVS[part]
+    return mamba_glue.conv_silu_heads(pre, params[w], heads,
+                                      params[bias] if cfg.ssm_conv_bc else None)
+
+
+def _bc(params, cfg: ModelConfig, x: torch.Tensor, name: str):
+    """B or C: [B, S, N] (one group, no conv) or [B·G, S, N]."""
+    g = cfg.ssm_groups
+    pre = matmul(x, params["w" + name])
+    if cfg.ssm_conv_bc:
+        return _conv(params, cfg, name, pre, g)
+    return pre if g == 1 else to_heads(pre, g)
+
+
 def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor, *, chunk: int = 128,
                 return_state: bool = False):
     bsz, s, d = x.shape
     h = cfg.ssm_heads
     f32 = torch.float32
+    if return_state and (cfg.ssm_groups > 1 or cfg.ssm_conv_bc):
+        raise NotImplementedError("the prefill state of a grouped mixer or one that "
+                                  "convolves B and C (serving is not ported for it)")
     z = matmul(x, params["wz"])
     # the causal conv and SiLU, written in the scan's [B·H, S, P] layout
-    xh = mamba_glue.conv_silu_heads(matmul(x, params["wx"]), params["conv_w"], h)
-    b = matmul(x, params["wb"])
-    c = matmul(x, params["wc"])
+    xh = _conv(params, cfg, "x", matmul(x, params["wx"]), h)
+    b = _bc(params, cfg, x, "b")
+    c = _bc(params, cfg, x, "c")
     dt = F.softplus(matmul(x.to(f32), params["wdt"]) + params["dt_bias"])
     dth = dt.transpose(1, 2).reshape(bsz * h, s)
     a = -torch.exp(params["a_log"][None].expand(bsz, h).reshape(-1))
@@ -75,7 +113,8 @@ def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor, *, chunk: int = 128,
     out = ssd_chunked(xh, dth, a, b, c, chunk=ch_len, return_state=return_state)
     y, final_state = out if return_state else (out, None)          # [BH, S, P]
     # the dskip add, back to token order, the gated norm
-    y = mamba_glue.skip_gate_norm(y, xh, z, params["dskip"], params["norm_g"], cfg.norm_eps)
+    y = mamba_glue.skip_gate_norm(y, xh, z, params["dskip"], params["norm_g"], cfg.norm_eps,
+                                  cfg.ssm_groups)
     out = matmul(y, params["wo"])
     if return_state:
         k1 = cfg.ssm_conv - 1

@@ -43,6 +43,30 @@ kernels on the card).  The expert FFN's bfloat16 products are
 reference under a tolerance, not bitwise; the combine sums each token's k
 contributions one bfloat16 add at a time in the reference's update order,
 so ``y`` is the same from run to run on the card.
+
+The dropless layer (``init_dropless``, ``apply_dropless``: a layer
+pattern's E, Nemotron-H's) is a second path, on one device, that drops
+nothing.  The router's float32 sigmoid scores, with a correction bias added
+only to choose the experts, pick the top-k of all ``moe_experts``; the
+chosen k are normalised and scaled (``moe_scale``).
+The device holds ``moe_held`` experts from ``moe_held_first`` (one shard of
+an expert-parallel group) and computes their part of the result for every
+pair routed to them: the pairs are sorted by held expert (the rest last)
+into a buffer of all T·k pairs, each expert's rows end at a device-side
+offset, and the experts' products are grouped products over those offsets
+(``torch._grouped_mm`` on the card; a plain loop over the experts on the
+CPU), so nothing waits on the host however the tokens fall.  The moves
+between token order and the buffer are ``kernels.moe_dropless``
+(``dispatch``, ``combine``): on the card hand-written kernels that read the
+last offset on the device and touch the held experts' rows alone; on the
+CPU plain statements that mask the rest.  The sum back to token order is
+float32, as the published model's, each token's k rows taken through the
+inverse of the sort in the order of its choices: no atomics, so the layer
+is deterministic, and no blocking call.  The experts are relu²
+(``w1``, ``w2``, no gate); an always-on shared expert of the same kind
+(``moe_shared_ff``) is added whole.  Its aux is the held
+experts' loads (``expert_load``, int32 on the device); there is no
+load-balance loss.
 """
 
 from __future__ import annotations
@@ -54,12 +78,18 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import quant_pack
+from repro_torch import spans
+from repro_torch.kernels import moe_dropless, quant_pack
+from repro_torch.kernels.build import takes_plain
 from repro_torch.launch.mesh import Mesh
 from .config import ModelConfig, ShardingPlan
-from .layers import dense_init
+from .layers import dense_init, matmul
 
-__all__ = ["MoEOptions", "init_moe", "apply_moe", "top_k", "router_matmul"]
+__all__ = ["MoEOptions", "init_moe", "apply_moe", "top_k", "router_matmul", "init_dropless",
+           "sort_pairs", "apply_dropless", "grouped_mm", "GROUPED_LAUNCHES"]
+
+#: grouped products the dropless layer launched on the card (forward calls)
+GROUPED_LAUNCHES = 0
 
 _U32 = 0xFFFFFFFF
 #: distinct odd multipliers of the hash router's k banks
@@ -440,3 +470,87 @@ def apply_moe(
     y = torch.cat(rows) if len(rows) > 1 else rows[0]
     return y, {"aux_loss": aux[0].to(x.device), "drop_frac": drops[0].to(x.device),
                "expert_load": occ[0].to(x.device)}
+
+
+# ------------------------------------------------------------ dropless layer
+
+def init_dropless(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The dropless layer's parameters: the float32 router [d, E] over all
+    experts and its correction bias [E] (zero), the held experts' w1
+    [E_held, d, ff] and w2 [E_held, ff, d], and the shared expert's
+    shared_w1 [d, ff_s] and shared_w2 [ff_s, d]."""
+    d, ff, sff, held = cfg.d_model, cfg.d_ff, cfg.moe_shared_ff, cfg.moe_local
+    return {"router": dense_init(gen, (d, cfg.moe_experts), dtype=torch.float32),
+            "e_bias": torch.zeros((cfg.moe_experts,), dtype=torch.float32, device=gen.device),
+            "w1": dense_init(gen, (held, d, ff)),
+            "w2": dense_init(gen, (held, ff, d), fan_in=ff),
+            "shared_w1": dense_init(gen, (d, sff)),
+            "shared_w2": dense_init(gen, (sff, d), fan_in=sff)}
+
+
+def _relu2(h: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(h))
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ w[e] [K, N] for the rows of expert e, rows offs[e-1] to
+    offs[e] (int32 ends); rows past offs[-1] are left as they come.  On the
+    card ``torch._grouped_mm`` (bf16, its own gradient); on the CPU a plain
+    loop over the experts (meta tensors: the shape)."""
+    global GROUPED_LAUNCHES
+    if takes_plain(a):
+        out = a.new_zeros((a.shape[0], w.shape[-1]))
+        if a.is_meta:
+            return out
+        start = 0
+        for e, end in enumerate(offs.tolist()):
+            out[start:end] = matmul(a[start:end], w[e])
+            start = end
+        return out
+    GROUPED_LAUNCHES += 1
+    return torch._grouped_mm(a, w, offs=offs)
+
+
+def _route(params, cfg: ModelConfig, xs: torch.Tensor):
+    """(experts [T, k] over all E, gates [T, k] float32)."""
+    scores = torch.sigmoid(router_matmul(xs.to(torch.float32), params["router"]))
+    _, experts = top_k(scores.detach() + params["e_bias"].detach(), cfg.moe_topk)
+    gates = scores.gather(-1, experts)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return experts, gates * cfg.moe_scale
+
+
+def sort_pairs(experts: torch.Tensor, first: int, held: int):
+    """The (token, expert) pairs of ``experts`` [T, k] sorted by held expert
+    (experts ``first`` to ``first + held``), the held experts' pairs first:
+    (order [T·k]: the pair at each row, pos [T, k]: the row of each pair,
+    counts [held], offs int32 [held]: each held expert's end, count int32
+    [1]: the last end), on the device, with no host sync."""
+    t, k = experts.shape
+    local = experts.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < held), local, held)
+    order = torch.argsort(key, stable=True)
+    counts = expert_counts(key, held + 1)[:held]
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=order.device))
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    return order, pos.view(t, k), counts, offs, offs[-1:]
+
+
+def apply_dropless(params: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B, S, d] -> (the held experts' part of the routed sum plus the
+    shared expert [B, S, d] in x's dtype, {"expert_load": int32 [E_held]})."""
+    b, s, d = x.shape
+    xs = x.reshape(b * s, d)
+    held = cfg.moe_local
+    with spans.span(spans.MOE_ROUTE):
+        experts, gates = _route(params, cfg, xs)
+        order, pos, counts, offs, count = sort_pairs(experts, cfg.moe_held_first, held)
+    with spans.span(spans.MOE_EXPERTS):
+        xin = moe_dropless.dispatch(xs, order, pos, count)
+        y_rows = grouped_mm(_relu2(grouped_mm(xin, params["w1"], offs)), params["w2"], offs)
+    with spans.span(spans.MOE_SHARED):
+        shared = matmul(_relu2(matmul(xs, params["shared_w1"])), params["shared_w2"])
+    with spans.span(spans.MOE_COMBINE):
+        y = moe_dropless.combine(y_rows, gates, order, pos, count).to(x.dtype) + shared
+    return y.reshape(b, s, d), {"expert_load": counts.to(torch.int32)}

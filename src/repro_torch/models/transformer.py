@@ -8,6 +8,18 @@ config's family:
   moe                  : rmsnorm → GQA attn → rmsnorm → switch-fabric MoE
   ssm                  : rmsnorm → Mamba-2 SSD mix (attention-free)
   hybrid (hymba)       : rmsnorm → ½·(attn ‖ SSD) parallel heads → rmsnorm → MLP
+  layer_pattern        : one mixer a layer, in the pattern's order (Nemotron-H):
+                         rmsnorm → Mamba-2 (M) | dropless MoE (E) | attention (*)
+
+Under a ``layer_pattern`` each kind's layers are stacked on their own leading
+dimension, ``params["layers"]["mamba" | "moe" | "attn"]``, each holding its
+norm ``ln1`` beside the mixer's leaves; the loop takes layer i from its
+kind's stack by its place among that kind's layers.  Each stack is split
+into its layers once a forward, outside the layers' checkpoints, so the
+backward stacks the layers' gradients once (one ``UnbindBackward0`` a
+leaf) where a per-layer select would write a zero gradient the size of the
+whole stack for each layer.  Serving (``prefill``, ``decode_step``) is not
+ported for a pattern and raises.
 
 Parameters keep the reference's layout — every layer weight stacked on a
 leading L dimension — so that weights carry across one to one; the scan over
@@ -77,6 +89,38 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree) -> list:
+    """A stacked tree's layers, each a tree of views (one ``unbind`` a leaf)."""
+    views = {k: v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(views.values())))
+    return [{k: v[i] for k, v in views.items()} for i in range(n)]
+
+
+def _init_mixer(gen: torch.Generator, cfg: ModelConfig, plan, kind: str) -> Dict[str, Any]:
+    """One layer of a pattern: its norm and its mixer's leaves."""
+    init = {"mamba": lambda: ssm_mod.init_mamba(gen, cfg, plan),
+            "moe": lambda: moe_mod.init_dropless(gen, cfg),
+            "attn": lambda: attn_mod.init_attention(gen, cfg, plan)}[kind]
+    return {"ln1": init_norm(cfg, gen.device), **init()}
+
+
+def _init_pattern(gen: torch.Generator, cfg: ModelConfig, plan) -> Dict[str, Any]:
+    layers: Dict[str, list] = {}
+    for kind in cfg.kinds:
+        layers.setdefault(kind, []).append(_init_mixer(gen, cfg, plan, kind))
+    return {kind: _stack(trees) for kind, trees in layers.items()}
+
+
+def _places(cfg: ModelConfig):
+    """(kind, index in that kind's stack) of each layer of a pattern."""
+    seen: Dict[str, int] = {}
+    out = []
+    for kind in cfg.kinds:
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = out[-1][1] + 1
+    return out
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 plan: Optional[ShardingPlan] = None) -> Dict[str, Any]:
     """The model's parameters, drawn from ``gen`` on its device, with the
@@ -86,8 +130,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         params["embed"] = init_embedding(gen, cfg, plan)
     params["unembed"] = init_unembed(gen, cfg, plan)
     params["final_norm"] = init_norm(cfg, gen.device)
-    params["layers"] = _stack([_init_block(gen, cfg, plan)
-                               for _ in range(cfg.n_layers)])
+    if cfg.layer_pattern:
+        params["layers"] = _init_pattern(gen, cfg, plan)
+    else:
+        params["layers"] = _stack([_init_block(gen, cfg, plan)
+                                   for _ in range(cfg.n_layers)])
     return params
 
 
@@ -119,6 +166,25 @@ def _block_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
     return specs
 
 
+def _pattern_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
+    """Each kind's leaves: its mixer's specs beside its norm's; the held
+    experts over the tensor axis, the shared expert as an MLP."""
+    fs, tp = _fsdp(plan), plan.tp
+    block = _block_specs(dataclasses.replace(cfg, family="hybrid", moe_experts=0), plan)
+    moe = {"router": (None, None), "e_bias": (None,), "w1": (plan.tp_axis, fs, None),
+           "w2": (plan.tp_axis, None, fs), "shared_w1": (fs, tp), "shared_w2": (tp, fs)}
+    ssm = dict(block["ssm"], conv_b=(tp,), bconv_b=(None,), cconv_b=(None,),
+               bconv_w=(None, None), cconv_w=(None, None))
+    mixers = {"mamba": ssm, "moe": moe, "attn": block["attn"]}
+    from repro_torch.launch.specs import _MetaFactories     # the leaves, no storage
+    out = {}
+    for kind in dict.fromkeys(cfg.kinds):
+        with _MetaFactories():
+            keys = _init_mixer(torch.Generator(), cfg, plan, kind).keys()
+        out[kind] = {k: (None,) if k == "ln1" else mixers[kind][k] for k in keys}
+    return out
+
+
 def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
     """The reference's spec tree without allocating parameters: one tuple
     per leaf, holding what its ``PartitionSpec`` holds (an axis name, a
@@ -135,7 +201,8 @@ def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, Any]:
         if isinstance(tree, dict):
             return {k: stacked(v) for k, v in tree.items()}
         return (None,) + tree
-    specs["layers"] = stacked(_block_specs(cfg, plan))
+    specs["layers"] = stacked(_pattern_specs(cfg, plan) if cfg.layer_pattern
+                              else _block_specs(cfg, plan))
     return specs
 
 
@@ -172,6 +239,42 @@ def _block_apply(layers, i: int, cfg: ModelConfig, plan: ShardingPlan, mesh,
         return _block(_layer(layers, i), cfg, plan, mesh, x, positions, moe_opts, window)
 
 
+def _mixer_apply(lp, kind: str, cfg: ModelConfig, x, positions):
+    """One layer of ``kind`` under a pattern, its weights ``lp``, in the
+    block's span."""
+    with spans.block_span():
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if kind == "mamba":
+            return x + ssm_mod.apply_mamba(lp, cfg, h), {}
+        if kind == "attn":
+            return x + attn_mod.apply_attention(lp, cfg, h, positions), {}
+        y, aux = moe_mod.apply_dropless(lp, cfg, h)
+        return x + y, aux
+
+
+def _pattern_hidden(params, cfg: ModelConfig, x, positions):
+    """The pattern's layers in order; aux: ``expert_load`` [MoE layers,
+    held experts]."""
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    stacks = {kind: _unbind(tree) for kind, tree in params["layers"].items()}
+    loads = []
+    for kind, i in _places(cfg):
+        args = (stacks[kind][i], kind, cfg, x, positions)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(_mixer_apply, *args, use_reentrant=False)
+        else:
+            x, aux = _mixer_apply(*args)
+        if aux:
+            loads.append(aux["expert_load"])
+    return x, ({"expert_load": torch.stack(loads)} if loads else {})
+
+
+def _no_pattern(cfg: ModelConfig, what: str) -> None:
+    if cfg.layer_pattern:
+        raise NotImplementedError(f"{what} is not ported for a layer pattern "
+                                  f"({cfg.name}: training only)")
+
+
 def _block(layer_params, cfg: ModelConfig, plan: ShardingPlan, mesh,
            x, positions, moe_opts, window: int):
     h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
@@ -203,6 +306,8 @@ def _hidden(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
             batch: Dict[str, torch.Tensor], moe_opts, window: int):
     """The last block's output [B, S, d] and ``forward``'s aux."""
     x, positions = _inputs(params, cfg, batch)
+    if cfg.layer_pattern:
+        return _pattern_hidden(params, cfg, x, positions)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     auxs = []
     for i in range(cfg.n_layers):
@@ -269,6 +374,7 @@ def prefill(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Serving prefill: consume the prompt, emit (last-token logits [B, V],
     decode state with per-layer caches stacked on L and ``pos``)."""
+    _no_pattern(cfg, "prefill")
     x, positions = _inputs(params, cfg, batch)
     s = x.shape[1]
     window = cfg.sliding_window
@@ -312,6 +418,7 @@ def decode_state_structs(cfg: ModelConfig, plan: Optional[ShardingPlan], batch: 
                          s_max: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Decode-state shapes and dtypes, without allocating (the reference
     also returns shardings; one device has none)."""
+    _no_pattern(cfg, "the decode state")
     del plan
     structs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {"pos": ((), torch.int32)}
     if cfg.has_attention:
@@ -350,6 +457,7 @@ def decode_step(
 ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """One serving step: consume one token, emit next-token logits [B, 1, V].
     ``pos`` stays a device scalar: nothing here waits on the host."""
+    _no_pattern(cfg, "decode_step")
     pos = state["pos"]
     if cfg.frontend == "tokens":
         x = params["embed"].to(cfg.activation_dtype)[tokens_or_embeds]

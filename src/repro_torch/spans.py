@@ -20,6 +20,11 @@ The spans of one step, each opened where its name says:
   ``CLIP``, ``LR``, ``OPTIMIZER``
                  ``train_step``: ``clip_by_global_norm``, ``lr_schedule``
                  with the copy of the step number, ``opt.update``
+  ``MOE_ROUTE``, ``MOE_EXPERTS``, ``MOE_SHARED``, ``MOE_COMBINE``
+                 ``models.moe.apply_dropless``, inside a block: the router
+                 and the sort of the pairs by expert, the held experts'
+                 grouped products, the shared expert, the weighted sum back
+                 to token order
 
 The backward pass has no span of its own per layer: the profiler's
 ``evaluate_function`` events carry the sequence number and thread of the
@@ -35,7 +40,8 @@ import torch
 import torch.profiler
 
 __all__ = ["STEP", "FORWARD", "BACKWARD", "BLOCK", "RECOMPUTE", "LOSS", "CLIP", "LR",
-           "OPTIMIZER", "NAMES", "span", "block_span"]
+           "OPTIMIZER", "MOE_ROUTE", "MOE_EXPERTS", "MOE_SHARED", "MOE_COMBINE", "NAMES",
+           "span", "block_span"]
 
 STEP = "repro_torch.train.step"
 FORWARD = "repro_torch.train.forward"
@@ -46,7 +52,12 @@ LOSS = "repro_torch.model.loss"
 CLIP = "repro_torch.train.clip"
 LR = "repro_torch.train.lr"
 OPTIMIZER = "repro_torch.train.optimizer"
-NAMES = (STEP, FORWARD, BACKWARD, BLOCK, RECOMPUTE, LOSS, CLIP, LR, OPTIMIZER)
+MOE_ROUTE = "repro_torch.model.moe.route"
+MOE_EXPERTS = "repro_torch.model.moe.experts"
+MOE_SHARED = "repro_torch.model.moe.shared"
+MOE_COMBINE = "repro_torch.model.moe.combine"
+NAMES = (STEP, FORWARD, BACKWARD, BLOCK, RECOMPUTE, LOSS, CLIP, LR, OPTIMIZER,
+         MOE_ROUTE, MOE_EXPERTS, MOE_SHARED, MOE_COMBINE)
 
 _NULL = contextlib.nullcontext()
 _recording = torch.autograd._profiler_enabled

@@ -125,6 +125,63 @@ def _counters():
     return mk.CONV_LAUNCHES, mk.CONV_BWD_LAUNCHES, mk.NORM_LAUNCHES, mk.NORM_BWD_LAUNCHES
 
 
+def _form_counters():
+    """(conv with a bias, its gradient, grouped gate norm, its gradient)
+    launches."""
+    return (mk.CONV_BIAS_LAUNCHES, mk.CONV_BIAS_BWD_LAUNCHES, mk.NORM_GROUPED_LAUNCHES,
+            mk.NORM_GROUPED_BWD_LAUNCHES)
+
+
+#: (B, S, H, P, K, groups): Nemotron-H's x at smoke width (8 heads, 2 groups),
+#: its B and C (heads = groups, P = N), K 2, S < K, one group
+CPU_NEW_FORMS = ((2, 37, 8, 16, 4, 2), (2, 21, 2, 32, 4, 2), (1, 9, 4, 16, 2, 4),
+                 (2, 3, 4, 8, 4, 1))
+
+
+def _bias(h, p, dev="cpu", seed=0):
+    g = torch.Generator(dev).manual_seed(seed + 99)
+    return 0.3 * torch.randn((h * p,), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", CPU_NEW_FORMS, ids=lambda f: "B{}S{}H{}P{}K{}G{}".format(*f))
+@pytest.mark.parametrize("fn", ["conv_silu_heads_bias", "skip_gate_norm_groups"])
+def test_ref_gradients_with_bias_and_groups_vs_autograd(fn, form, dtype):
+    """The plain gradients of the conv with a bias (its gradient a sum over
+    rows) and of the gate norm over groups hold to autograd of the plain
+    forwards, at CPU_GRAD_TOL as the forms without them."""
+    b, s, h, p, k, groups = form
+    if fn == "conv_silu_heads_bias":
+        xi, w, dxh = _conv_inputs(b, s, h, p, k, dtype, seed=2)
+        bias = _bias(h, p)
+        leaves = _leaves(xi, w, bias)
+        want = torch.autograd.grad(ref.conv_silu_heads_ref(leaves[0], leaves[1], h, leaves[2]),
+                                   leaves, dxh)
+        got = ref.conv_silu_heads_bwd_ref(xi, w, dxh, bias)
+        assert [g.dtype for g in got] == [dtype, F32, F32]
+    else:
+        *args, dout = _norm_inputs(b, s, h, p, dtype, seed=2)
+        leaves = _leaves(*args)
+        want = torch.autograd.grad(ref.skip_gate_norm_ref(*leaves, EPS, groups), leaves, dout)
+        got = ref.skip_gate_norm_bwd_ref(dout, *args, EPS, groups)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        assert _rel(g, w_) <= CPU_GRAD_TOL[dtype], (fn, _rel(g, w_))
+
+
+def test_grouped_norm_is_the_norm_of_each_group():
+    """With G groups the gated norm of a row is the one-group gated norm of
+    each of its G slices, side by side (gain ones)."""
+    y, xh, z, dskip, _, _ = _norm_inputs(2, 11, 8, 16, F32)
+    ones = torch.ones(8 * 16)
+    got = ref.skip_gate_norm_ref(y, xh, z, dskip, ones, EPS, 4)
+    u = ref.to_tokens(y + xh * dskip[None, :, None, None].expand(2, 8, 11, 16).reshape(y.shape),
+                      2)
+    want = torch.cat([ref.gated_norm(u[..., i:i + 32], z[..., i:i + 32], ones[:32], EPS, F32)
+                      for i in range(0, 128, 32)], -1)
+    assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("return_state", [False, True])
 def test_apply_mamba_on_the_cpu_takes_the_plain_code(return_state):
     cfg = get_smoke("mamba2-780m")
@@ -199,6 +256,12 @@ def _bad_calls():
         ("dout_dtype", lambda: mk.skip_gate_norm_bwd(dout.float(), y, xh, z, dskip, norm_g,
                                                      rstd), "dtype"),
         ("grad", lambda: mk.conv_silu_heads(xi, w.requires_grad_(True), 4), "gradient"),
+        ("bias_shape", lambda: mk.conv_silu_heads(xi, w, 4, torch.zeros(63)), "shape"),
+        ("bias_bf16", lambda: mk.conv_silu_heads(xi, w, 4, torch.zeros(64, dtype=BF16)),
+         "dtype"),
+        ("groups", lambda: mk.skip_gate_norm(y, xh, z, dskip, norm_g, EPS, 3), "groups"),
+        ("rstd_groups", lambda: mk.skip_gate_norm_bwd(dout, y, xh, z, dskip, norm_g, rstd, 2),
+         "shape"),
     ]
 
 
@@ -287,6 +350,83 @@ def test_cuda_glue_vs_plain(form, dtype):
     for g, w_ in zip(gn, wn):
         assert _rel(g, w_) <= GRAD_TOL[dtype]
     assert _counters() == (n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1)
+
+
+#: (B, S, H, P, K, bias, groups): Nemotron-3-Nano's x (64 heads of 64, a
+#: bias, the norm over 8 groups) at its cell's shape and a ragged one, and
+#: its B and C (8 groups, P = N = 128: the conv alone) at the cell's shape
+CARD_NEW_FORMS = ((4, 8192, 64, 64, 4, True, 8), (2, 1000, 64, 64, 4, True, 8),
+                  (4, 8192, 8, 128, 4, True, 0), (3, 3, 64, 64, 4, True, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", CARD_NEW_FORMS,
+                         ids=lambda f: "B{}S{}H{}P{}K{}bias{:d}G{}".format(*f))
+def test_cuda_glue_bias_and_groups_vs_plain(form, dtype):
+    """The conv with a bias and the gate norm over groups against the plain
+    code, as ``test_cuda_glue_vs_plain`` holds the first forms; each
+    launch counted once by its kernel's counter and its form's (groups 0:
+    the conv alone, as B and C take it)."""
+    dev = _cuda()
+    b, s, h, p, k, _, groups = form
+    fwd_ulps = 1 if dtype == BF16 else 8
+    xi, w, dxh = _conv_inputs(b, s, h, p, k, dtype, dev, seed=s)
+    leaves = _leaves(xi, w, _bias(h, p, dev))
+    n0, f0 = _counters(), _form_counters()
+    got = mamba_glue.conv_silu_heads(leaves[0], leaves[1], h, leaves[2])
+    gw = torch.autograd.grad(got, leaves, dxh)
+    torch.cuda.synchronize()
+    assert _counters() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    assert _form_counters() == (f0[0] + 1, f0[1] + 1, f0[2], f0[3])
+    leaves = _leaves(xi, w, _bias(h, p, dev))
+    want = ref.conv_silu_heads_ref(leaves[0], leaves[1], h, leaves[2])
+    ww = torch.autograd.grad(want, leaves, dxh)
+    assert _ulps(got, want, dtype) <= fwd_ulps
+    for g, w_ in zip(gw, ww):
+        assert _rel(g, w_) <= GRAD_TOL[dtype]
+    del got, want, gw, ww, leaves
+    if not groups:
+        return
+    *args, dout = _norm_inputs(b, s, h, p, dtype, dev, seed=s + 1)
+    leaves = _leaves(*args)
+    got = mamba_glue.skip_gate_norm(*leaves, EPS, groups)
+    gn = torch.autograd.grad(got, leaves, dout)
+    leaves = _leaves(*args)
+    want = ref.skip_gate_norm_ref(*leaves, EPS, groups)
+    wn = torch.autograd.grad(want, leaves, dout)
+    assert _ulps(got, want, dtype) <= fwd_ulps
+    for g, w_ in zip(gn, wn):
+        assert _rel(g, w_) <= GRAD_TOL[dtype]
+    grouped = int(groups > 1)
+    assert _counters() == (n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    assert _form_counters() == (f0[0] + 1, f0[1] + 1, f0[2] + grouped, f0[3] + grouped)
+
+
+@pytest.mark.cuda
+def test_cuda_glue_bias_and_groups_gradients_are_deterministic():
+    dev = _cuda()
+    b, s, h, p, k = 2, 1000, 64, 64, 4
+    xi, w, dxh = _conv_inputs(b, s, h, p, k, BF16, dev)
+    bias = _bias(h, p, dev)
+    one, two = mk.conv_silu_heads_bwd(xi, w, dxh, bias), mk.conv_silu_heads_bwd(xi, w, dxh, bias)
+    assert len(one) == 3 and all(torch.equal(a, c) for a, c in zip(one, two))
+    y, xh, z, dskip, norm_g, dout = _norm_inputs(b, s, h, p, BF16, dev)
+    _, rstd = mk.skip_gate_norm(y, xh, z, dskip, norm_g, EPS, 8)
+    one = mk.skip_gate_norm_bwd(dout, y, xh, z, dskip, norm_g, rstd, 8)
+    two = mk.skip_gate_norm_bwd(dout, y, xh, z, dskip, norm_g, rstd, 8)
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_groups_that_are_not_whole_warps():
+    """Groups of 128 channels (16 threads) are refused before any launch."""
+    dev = _cuda()
+    y, xh, z, dskip, norm_g, _ = _norm_inputs(2, 64, 8, 64, BF16, dev)
+    n0 = _counters()
+    with torch.no_grad(), pytest.raises(ValueError, match="does not take"):
+        mk.skip_gate_norm(y, xh, z, dskip, norm_g, EPS, 4)
+    assert _counters() == n0
 
 
 @pytest.mark.cuda
